@@ -5,6 +5,7 @@ import dataclasses
 import math
 
 import numpy as np
+import pytest
 import jax.numpy as jnp
 
 from treee_tpu import hull3d, rbv, trunk_axis
@@ -158,6 +159,26 @@ def test_batched_trunk_axis_matches_loop():
             np.testing.assert_allclose(
                 np.asarray(axes.direction[sid]), np.asarray(ref.direction),
                 atol=1e-4)
+
+
+@pytest.mark.parametrize("algorithm", ["average_direction", "low_high_layer"])
+def test_batched_trunk_axis_independent_of_point_order(algorithm):
+    """The batched axes sum x/z as exact integers, so any order of the
+    points (a GPU's atomics, another shard split) gives the same bits."""
+    batched = getattr(trunk_axis, f"batched_{algorithm}")
+    pos, cls, seg, S = _forest_arrays()
+    # offset like a georeferenced scan: float sums would round here
+    pos = pos + np.array([5123.37, 0.0, -871.19], np.float32)
+    want = batched(jnp.asarray(pos), jnp.asarray(cls == 1), jnp.asarray(seg),
+                   S)
+    for seed in range(3):
+        p = np.random.default_rng(seed).permutation(len(pos))
+        got = batched(jnp.asarray(pos[p]), jnp.asarray(cls[p] == 1),
+                      jnp.asarray(seg[p]), S)
+        np.testing.assert_array_equal(np.asarray(got.origin),
+                                      np.asarray(want.origin))
+        np.testing.assert_array_equal(np.asarray(got.direction),
+                                      np.asarray(want.direction))
 
 
 def test_batched_split_rbv_and_traits_match_loop():
@@ -437,84 +458,3 @@ def test_view_projection_roundtrip():
     v = np.asarray(cam.view_matrix())
     t = np.asarray(cam.transform)
     np.testing.assert_allclose(v @ t, np.eye(4), atol=1e-5)
-
-
-def test_sorted_rbv_scan_and_gather_branches_equal():
-    """_batched_split_rbv_sorted's two fill branches — per-point gathers
-    (CPU default) vs the Pallas segmented-scan fills (TPU; interpret mode
-    here) — are exact value copies and must agree bit-for-bit, as must the
-    scan-vs-scatter y extents."""
-    pos, cls, seg, S = _forest_arrays(seed=9)
-    posj, clsj, segj = jnp.asarray(pos), jnp.asarray(cls), jnp.asarray(seg)
-    valid = jnp.ones(len(pos), bool)
-    axes = trunk_axis.batched_average_direction(posj, clsj == 1, segj, S)
-    tfs = trunk_axis.batched_axis_transform(axes)
-
-    crown_g, trunk_g = rbv._batched_split_rbv_sorted(
-        posj, clsj, valid, segj, S, tfs, 6, 8, 4, 8, False, None,
-        interpret=False)   # gather/scatter branch on CPU
-    crown_s, trunk_s = rbv._batched_split_rbv_sorted(
-        posj, clsj, valid, segj, S, tfs, 6, 8, 4, 8, False, None,
-        interpret=True)    # Pallas-scan branch, interpreted
-    for a, b in ((crown_g, crown_s), (trunk_g, trunk_s)):
-        np.testing.assert_array_equal(np.asarray(a.distances),
-                                      np.asarray(b.distances))
-        np.testing.assert_array_equal(np.asarray(a.min_y), np.asarray(b.min_y))
-        np.testing.assert_array_equal(np.asarray(a.slice_height),
-                                      np.asarray(b.slice_height))
-
-
-def test_sorted_average_direction_matches_scatter():
-    """_batched_average_direction_sorted (Pallas scans, interpret mode) vs
-    the scatter formulation: min/max/fills exact, sums to float tolerance,
-    shared [S]-tail — axes must agree tightly."""
-    pos, cls, seg, S = _forest_arrays(seed=13)
-    posj, clsj, segj = jnp.asarray(pos), jnp.asarray(cls), jnp.asarray(seg)
-    mask = clsj == 1
-
-    ref = trunk_axis.batched_average_direction(posj, mask, segj, S)
-    got = trunk_axis._batched_average_direction_sorted(
-        posj, mask, segj, S, 10, None, interpret=True)
-    np.testing.assert_array_equal(np.asarray(ref.found),
-                                  np.asarray(got.found))
-    np.testing.assert_allclose(np.asarray(got.origin),
-                               np.asarray(ref.origin), rtol=1e-4, atol=1e-4)
-    np.testing.assert_allclose(np.asarray(got.direction),
-                               np.asarray(ref.direction), rtol=1e-4,
-                               atol=1e-4)
-
-
-def test_scatter_inventory_env_fallback(monkeypatch):
-    """TREEE_SCATTER_INVENTORY=1 routes batched_split_rbv through the
-    scatter formulation on any backend — the runtime escape hatch for a
-    pod where the Pallas-in-shard_map lowering misbehaves (advisor r3) —
-    with results matching the sorted fast path."""
-    from treee_tpu import config as config_mod
-
-    pos, cls, seg, S = _forest_arrays(seed=7)
-    posj, clsj, segj = jnp.asarray(pos), jnp.asarray(cls), jnp.asarray(seg)
-    valid = jnp.ones(len(pos), bool)
-    axes = trunk_axis.batched_average_direction(posj, clsj == 1, segj, S)
-    tfs = trunk_axis.batched_axis_transform(axes)
-    kw = dict(crown_slices=6, crown_sectors=8, trunk_slices=4,
-              trunk_sectors=8, method=rbv.METHOD_MAX, symmetric=False)
-
-    crown_fast, trunk_fast = rbv.batched_split_rbv(
-        posj, clsj, valid, segj, S, tfs, **kw)
-
-    monkeypatch.setenv("TREEE_SCATTER_INVENTORY", "1")
-    assert config_mod.scatter_inventory_forced()
-    assert not config_mod.use_sorted_inventory()
-    # the flag is read at trace time; drop the cached trace so it takes
-    rbv.batched_split_rbv.clear_cache()
-    try:
-        crown_sc, trunk_sc = rbv.batched_split_rbv(
-            posj, clsj, valid, segj, S, tfs, **kw)
-        for a, b in ((crown_fast, crown_sc), (trunk_fast, trunk_sc)):
-            np.testing.assert_allclose(np.asarray(a.distances),
-                                       np.asarray(b.distances), atol=2e-4)
-            np.testing.assert_allclose(np.asarray(a.min_y),
-                                       np.asarray(b.min_y), atol=1e-4)
-    finally:
-        monkeypatch.delenv("TREEE_SCATTER_INVENTORY")
-        rbv.batched_split_rbv.clear_cache()

@@ -200,9 +200,8 @@ def test_run_end_index_strided_matches_flat():
 
 
 def test_score_chunk_widths_bit_identical():
-    """Column chunking (incl. the chunk=2 width the bench uses above 24M
-    points, which once hit a Mosaic concat layout bug in the Pallas scan)
-    must not change any table output bit."""
+    """Column chunking (incl. the chunk=2 width) must not change any table
+    output bit."""
     import dataclasses
     import jax
 

@@ -432,8 +432,8 @@ def test_compact_indices_matches_scatter_reference():
 def test_knn_grid_reduce_slab_matches_direct():
     """Round-5: above GRID_SRC_MAX rows the fused grid k-NN runs as an
     exact slab decomposition (x-cell slices + one-cell halos, recursing
-    along y/z for oversized slices) because v5e map executables touching
-    >= 4M-row arrays crash the worker.  Slab results must equal the
+    along y/z for oversized slices) — the in-map array-size bound of
+    ops/neighbors.py.  Slab results must equal the
     single-hash path bit-for-bit when no cell overflows cell_capacity
     (the global grid origin is shared, so quantization is identical)."""
     from treee_tpu.ops import eigen

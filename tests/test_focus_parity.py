@@ -170,9 +170,9 @@ def test_frustum_culled_lod(session):
 
 
 def test_lod_snug_capacity(session):
-    """build_lod pads to a snug granular capacity (the 2M over-padding cost
-    26 ms vs 7 ms per frame on v5e, tools/profile_frame.py; pow2 padding
-    wasted 2x at multi-million-row adaptive subsets)."""
+    """build_lod pads to a snug granular capacity (frame cost scales with
+    padded rows; pow2 padding wastes up to 2x at multi-million-row
+    adaptive subsets)."""
     from treee_tpu.ops import octree
 
     s = session

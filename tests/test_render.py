@@ -5,6 +5,7 @@ import dataclasses
 
 import numpy as np
 import jax.numpy as jnp
+import pytest
 
 from treee_tpu.config import RenderConfig
 from treee_tpu.io import las
@@ -160,3 +161,96 @@ def test_far_depth_high_palette_not_background():
         jnp.ones(1, bool), cam, palettes.get("turbo"), far_cfg,
     )
     assert np.asarray(hit).any()
+
+
+def _dilate_oracle(kimg, radius, cfg, f_proj):
+    """Plain-numpy splat dilation (resolve_keys semantics): ``radius``
+    passes over the 8 neighbours in a fixed order, a neighbour's key wins a
+    pixel when it is nearer and the pixel lies inside its splat circle."""
+    h, w = kimg.shape
+    ibig = 0x7FFFFFFF
+    p22 = cfg.far / (cfg.near - cfg.far)
+    p23 = cfg.near * cfg.far / (cfg.near - cfg.far)
+    z = (kimg >> 8).astype(np.float32) * np.float32(1.0 / ((1 << 23) - 1))
+    d = np.float32(p23) / np.minimum(z + np.float32(p22), np.float32(-1e-9))
+    rad = np.maximum(np.float32(cfg.point_size * f_proj * (h / 2.0))
+                     / np.maximum(d, np.float32(1e-6)), np.float32(0.71))
+    k = kimg.copy()
+    rd = np.where(kimg != ibig, rad, 0).astype(np.float32)
+    sdx = np.zeros((h, w), np.float32)
+    sdy = np.zeros((h, w), np.float32)
+    for _ in range(radius):
+        for dy, dx in ((-1, 0), (1, 0), (0, -1), (0, 1),
+                       (-1, -1), (-1, 1), (1, -1), (1, 1)):
+            nk, nrd = k.copy(), rd.copy()
+            nsx, nsy = sdx.copy(), sdy.copy()
+            for y in range(h):
+                for x in range(w):
+                    sy, sx = y - dy, x - dx
+                    if not (0 <= sy < h and 0 <= sx < w):
+                        continue
+                    cdx, cdy = sdx[sy, sx] + dx, sdy[sy, sx] + dy
+                    if (k[sy, sx] != ibig and k[sy, sx] < k[y, x]
+                            and cdx * cdx + cdy * cdy
+                            <= rd[sy, sx] * rd[sy, sx]):
+                        nk[y, x], nrd[y, x] = k[sy, sx], rd[sy, sx]
+                        nsx[y, x], nsy[y, x] = cdx, cdy
+            k, rd, sdx, sdy = nk, nrd, nsx, nsy
+    return k
+
+
+@pytest.mark.parametrize("radius", [1, 3])
+def test_dilation_matches_numpy_loop(radius):
+    """The XLA image-space dilation in resolve_keys equals a pixel loop."""
+    cfg = dataclasses.replace(RenderConfig(width=40, height=30),
+                              max_splat_radius=radius, point_size=0.3)
+    cam = Camera.orbital(distance=20.0)
+    rng = np.random.default_rng(radius)
+    pos = (rng.normal(size=(300, 3)) * 4.0).astype(np.float32)
+    prop = rng.random(300).astype(np.float32)
+    kimg = splat.rasterize_keys(jnp.asarray(pos), jnp.asarray(prop),
+                                jnp.ones(300, bool), cam, cfg)
+    f_proj = float(cam.projection_matrix(cfg.width / cfg.height)[1, 1])
+    want = _dilate_oracle(np.asarray(kimg), radius, cfg, f_proj)
+    # radius 0 shades the oracle's keys without dilating them again
+    cfg0 = dataclasses.replace(cfg, max_splat_radius=0)
+    pal = palettes.get("turbo")
+    got_c, got_z, _ = splat.resolve_keys(kimg, cam, pal, cfg)
+    want_c, want_z, _ = splat.resolve_keys(jnp.asarray(want), cam, pal, cfg0)
+    np.testing.assert_array_equal(np.asarray(got_z), np.asarray(want_z))
+    np.testing.assert_array_equal(np.asarray(got_c), np.asarray(want_c))
+
+
+def _eye_dome_oracle(color, z01, cfg):
+    """Plain-numpy eye-dome lighting (eye_dome.wgsl:37-67 semantics)."""
+    s = max(1.0 - cfg.eye_dome_strength, 0.1) ** 6
+    n, f = cfg.near, cfg.far
+    lin = np.where(z01 >= 1.0, 1.0, (2.0 * n) / (f + n - z01 * (f - n)))
+    h, w = z01.shape
+    out = np.empty_like(color)
+    for y in range(h):
+        for x in range(w):
+            m = lin[y, x]
+            for yy, xx in ((y - 1, x), (y + 1, x), (y, x - 1), (y, x + 1)):
+                yy, xx = min(max(yy, 0), h - 1), min(max(xx, 0), w - 1)
+                m = max(m, lin[yy, xx])
+            m = min(m, lin[y, x] + s)
+            a = (m - lin[y, x]) / s if z01[y, x] < 1.0 else 0.0
+            out[y, x] = color[y, x] * (1 - a) + np.asarray(
+                cfg.eye_dome_color) * a
+    return out
+
+
+@pytest.mark.parametrize("strength", [0.7, 0.3])
+def test_eye_dome_matches_numpy_loop(strength):
+    rng = np.random.default_rng(2)
+    h, w = 24, 32
+    z01 = rng.uniform(0.9, 1.0, (h, w)).astype(np.float32)
+    z01[rng.uniform(size=(h, w)) < 0.3] = 1.0  # background holes
+    color = rng.uniform(0, 1, (h, w, 3)).astype(np.float32)
+    cfg = RenderConfig(width=w, height=h, eye_dome_strength=strength,
+                       eye_dome_color=(0.1, 0.2, 0.3))
+    got = np.asarray(splat.eye_dome(jnp.asarray(color), jnp.asarray(z01), cfg))
+    want = _eye_dome_oracle(color.astype(np.float64), z01.astype(np.float64),
+                            cfg)
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)

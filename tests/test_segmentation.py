@@ -266,3 +266,246 @@ def test_sorted_extract_matches_topk():
     r_t = segment_points(jnp.zeros((64, 3)), jnp.zeros(64, bool), 0.75, cfg2t)
     np.testing.assert_array_equal(np.asarray(r_s.segment),
                                   np.asarray(r_t.segment))
+
+
+def test_jump_flood_packed_matches_unpacked():
+    """Lattice-aligned seeds (multiples of s/64) quantize exactly, so the
+    packed-plane JFA is bit-identical to the 4-plane one; random seeds agree
+    on >=99% of cells (quantization moves positions by <~1 cm)."""
+    import jax
+
+    from treee_tpu import segmentation as sg
+
+    g = 64
+    s = jnp.float32(0.75)
+    lo = jnp.zeros(3, jnp.float32)
+    qs = 0.75 / 64.0  # == 3/256, exactly representable
+
+    def centers():
+        return jnp.stack(
+            [
+                (jax.lax.broadcasted_iota(jnp.float32, (g, g), 0) + 0.5) * s,
+                (jax.lax.broadcasted_iota(jnp.float32, (g, g), 1) + 0.5) * s,
+            ],
+            axis=-1,
+        )
+
+    rng = np.random.default_rng(5)
+    for aligned in (True, False):
+        slot_grid = np.full((g, g), -1, np.int32)
+        pos_grid = np.zeros((g, g, 2), np.float32)
+        cells = rng.choice(g * g, 25, replace=False)
+        for si, c in enumerate(cells):
+            gx, gz = divmod(int(c), g)
+            px, pz = (gx + rng.uniform()) * 0.75, (gz + rng.uniform()) * 0.75
+            if aligned:
+                px, pz = round(px / qs) * qs, round(pz / qs) * qs
+            slot_grid[gx, gz] = si
+            pos_grid[gx, gz] = (px, pz)
+        ref = np.asarray(sg._jump_flood(jnp.asarray(slot_grid)[None],
+                                        jnp.asarray(pos_grid)[None],
+                                        centers()))[0]
+        out = np.asarray(sg._jump_flood_packed(
+            jnp.asarray(slot_grid)[None], jnp.asarray(pos_grid)[None],
+            centers(), lo, s))[0]
+        if aligned:
+            np.testing.assert_array_equal(out, ref)
+        else:
+            assert (out == ref).mean() > 0.99
+
+
+def test_segment_points_packed_jfa_flag():
+    """segment_points with use_packed_jfa reproduces the default ids on a
+    small synthetic forest (seeds well separated: no quantization ties)."""
+    import dataclasses
+
+    from treee_tpu import segmentation as sg
+
+    pts = las.synthetic_forest(n_trees=6, points_per_tree=400,
+                               ground_points=400, seed=3)
+    pos = jnp.asarray(pts)
+    valid = jnp.ones(pos.shape[0], bool)
+    # bruteforce Voronoi (the default) would shadow both JFA paths
+    cfg0 = SegmentationConfig(grid_size=128, max_bands=32,
+                              cc_occupied_cap=1 << 14,
+                              use_bruteforce_voronoi=False,
+                              use_packed_jfa=False)
+    cfg1 = dataclasses.replace(cfg0, use_packed_jfa=True)
+    r0 = sg.segment_points(pos, valid, 0.75, cfg0)
+    r1 = sg.segment_points(pos, valid, 0.75, cfg1)
+    assert (np.asarray(r0.segment) == np.asarray(r1.segment)).mean() > 0.999
+    assert int(r0.n_segments) == int(r1.n_segments)
+
+
+def _blob_grid(b, g, n_blobs, seed, walk=60):
+    """Occupancy grids with connected blobs (random walks from seed cells)."""
+    rng = np.random.default_rng(seed)
+    occ = np.zeros((b, g, g), bool)
+    for bi in range(b):
+        for _ in range(n_blobs):
+            y, x = rng.integers(4, g - 4, 2)
+            for _ in range(walk):
+                occ[bi, y, x] = True
+                dy, dx = rng.integers(-1, 2, 2)
+                y = int(np.clip(y + dy, 0, g - 1))
+                x = int(np.clip(x + dx, 0, g - 1))
+    return occ
+
+
+def _snake_grid(g):
+    """One band holding a single serpentine component: the longest label
+    path a g x g grid allows, the hardest case for label propagation."""
+    occ = np.zeros((1, g, g), bool)
+    for r in range(0, g, 2):
+        occ[0, r, :] = True
+        if r + 1 < g:
+            occ[0, r + 1, g - 1 if (r // 2) % 2 == 0 else 0] = True
+    return occ
+
+
+def _cc_oracle(occ):
+    """Run-to-fixpoint labels by flood fill: every occupied cell gets the
+    smallest flat in-band index of its 8-connected component."""
+    b, g, _ = occ.shape
+    out = np.full(occ.shape, 0x7FFFFFFF, np.int64)
+    for bi in range(b):
+        seen = np.zeros((g, g), bool)
+        for y0, x0 in zip(*np.nonzero(occ[bi])):
+            if seen[y0, x0]:
+                continue
+            comp, stack = [], [(y0, x0)]
+            seen[y0, x0] = True
+            while stack:
+                y, x = stack.pop()
+                comp.append((y, x))
+                for dy in (-1, 0, 1):
+                    for dx in (-1, 0, 1):
+                        yy, xx = y + dy, x + dx
+                        if (0 <= yy < g and 0 <= xx < g and occ[bi, yy, xx]
+                                and not seen[yy, xx]):
+                            seen[yy, xx] = True
+                            stack.append((yy, xx))
+            label = min(y * g + x for y, x in comp)
+            for y, x in comp:
+                out[bi, y, x] = label
+    return out
+
+
+@pytest.mark.parametrize("case", ["blobs", "blobs_small_cap", "snake"])
+def test_connected_components_reach_fixpoint(case):
+    """The XLA CC (reduce_window sweeps + compact pointer jumps) converges
+    to the flood-fill oracle, including cells past the compaction cap."""
+    from treee_tpu import segmentation as sg
+
+    if case == "snake":
+        occ, cap = _snake_grid(24), 1 << 12
+    else:
+        occ = _blob_grid(b=3, g=48, n_blobs=5, seed=11)
+        cap = 64 if case == "blobs_small_cap" else 1 << 12
+    labels, _, _ = sg._connected_components(jnp.asarray(occ), iters=4000,
+                                            occ_cap=cap)
+    np.testing.assert_array_equal(np.asarray(labels), _cc_oracle(occ))
+
+
+def _match_band_oracle(tp, act, n_alloc, cents, cmask, radius, rounds):
+    """Plain-loop mutual-nearest matching + free-slot allocation."""
+    tp, act = tp.copy(), act.copy()
+    t_cap, c_cap = len(tp), len(cents)
+    taken = ~cmask
+    for _ in range(rounds):
+        diff = tp[:, None, :] - cents[None, :, :]
+        d = np.sqrt((diff * diff).sum(-1)).astype(np.float32)
+        d[~(act[:, None] & ~taken[None, :])] = np.float32(3.0e38)
+        new_tp = tp.copy()
+        for t in range(t_cap):
+            c = int(np.argmin(d[t]))
+            if (act[t] and d[t, c] <= radius
+                    and int(np.argmin(d[:, c])) == t):
+                new_tp[t] = cents[c]
+                taken[c] = True
+        tp = new_tp
+    free = [t for t in range(t_cap) if not act[t]]
+    for c in range(c_cap):
+        if cmask[c] and not taken[c] and free:
+            t = free.pop(0)
+            tp[t] = cents[c]
+            act[t] = True
+            n_alloc += 1
+    return tp, act, n_alloc
+
+
+@pytest.mark.parametrize("seed", [13, 21])
+def test_match_scan_matches_loop_oracle(seed):
+    """band_scan's lax.scan of _match_band == a plain loop, band by band."""
+    import jax
+
+    from treee_tpu import segmentation as sg
+
+    rng = np.random.default_rng(seed)
+    b, c_cap, t_cap, rounds = 6, 32, 48, 4
+    cents = rng.uniform(0, 50, (b, c_cap, 2)).astype(np.float32)
+    cmask = rng.random((b, c_cap)) < 0.4
+    # some clusters recur across bands (should match), some are new
+    cents[1:] = np.where(rng.random((b - 1, c_cap, 1)) < 0.5,
+                         cents[:1] + rng.normal(0, 0.3, (b - 1, c_cap, 2)),
+                         cents[1:]).astype(np.float32)
+    radius = np.float32(1.5)
+
+    def band_step(carry, xs):
+        tracked_pos, active, n_alloc = carry
+        c, m = xs
+        tracked_pos, active, n_alloc = sg._match_band(
+            tracked_pos, active, n_alloc, c, m, radius, rounds)
+        return (tracked_pos, active, n_alloc), (tracked_pos, active)
+
+    init = (jnp.zeros((t_cap, 2), jnp.float32), jnp.zeros(t_cap, bool),
+            jnp.int32(0))
+    (_, _, n_alloc), (tp_b, act_b) = jax.lax.scan(
+        band_step, init, (jnp.asarray(cents), jnp.asarray(cmask)))
+
+    tp = np.zeros((t_cap, 2), np.float32)
+    act = np.zeros(t_cap, bool)
+    n = 0
+    for bi in range(b):
+        tp, act, n = _match_band_oracle(tp, act, n, cents[bi], cmask[bi],
+                                        radius, rounds)
+        np.testing.assert_array_equal(np.asarray(act_b[bi]), act)
+        np.testing.assert_array_equal(np.asarray(tp_b[bi]), tp)
+    assert int(n_alloc) == n
+
+
+def test_cluster_centroids_are_exact_weighted_means():
+    """_extract_clusters' fixed-point centroid sums equal the float64
+    count-weighted mean of the member cell centres (no accumulation-order
+    error), so the ids cannot depend on the scatter's order."""
+    from treee_tpu import segmentation as sg
+
+    occ = _blob_grid(b=2, g=40, n_blobs=4, seed=3)
+    rng = np.random.default_rng(4)
+    cnt = np.where(occ, rng.integers(1, 5000, occ.shape), 0).astype(np.int32)
+    lo = jnp.asarray([-7.25, 0.0, 3.5], jnp.float32)
+    s = jnp.float32(0.75)
+    labels, occ_idx, occ_valid = sg._connected_components(
+        jnp.asarray(occ), iters=4000, occ_cap=1 << 12)
+    cents, mask = sg._extract_clusters(
+        labels, jnp.asarray(cnt), lo, s, 16, 1, occ_idx, occ_valid)
+    lab = _cc_oracle(occ)
+    got = {}
+    for bi in range(occ.shape[0]):
+        for ci in np.nonzero(np.asarray(mask[bi]))[0]:
+            got[(bi, tuple(np.asarray(cents[bi, ci])))] = True
+    g = occ.shape[1]
+    want = set()
+    for bi in range(occ.shape[0]):
+        for label in np.unique(lab[bi][occ[bi]]):
+            m = (lab[bi] == label) & occ[bi]
+            w = cnt[bi][m].astype(np.float64)
+            ys, xs = np.nonzero(m)
+            cx = -7.25 + ((ys + 0.5) * w).sum() / w.sum() * 0.75
+            cz = 3.5 + ((xs + 0.5) * w).sum() / w.sum() * 0.75
+            want.add((bi, cx, cz))
+    assert len(got) == len(want)
+    for bi, cx, cz in want:
+        near = [k for k in got if k[0] == bi
+                and abs(k[1][0] - cx) < 2e-5 and abs(k[1][1] - cz) < 2e-5]
+        assert near, (bi, cx, cz)

@@ -483,73 +483,6 @@ def test_sharded_pick_miss():
     assert not bool(got_found) and int(got_seg) == -1
 
 
-def test_sorted_inventory_paths_compose_sharded():
-    """The TPU-only sorted-scan inventory paths (Pallas kernels, interpret
-    mode here) composed over the 8-device mesh == the single-device scatter
-    formulation: min/max extents and max grids compose exactly, float-sum
-    tables to psum tolerance.  This is the composition a real pod slice
-    runs; the CPU suite otherwise only exercises the scatter branches."""
-    import functools
-
-    from jax.sharding import NamedSharding, PartitionSpec as P
-    from jax import shard_map
-
-    from treee_tpu import rbv as rbv_mod
-    from treee_tpu import trunk_axis as ta
-
-    pos, valid = _forest(n_pad=10240)
-    rng = np.random.default_rng(3)
-    seg = rng.integers(0, 6, len(pos)).astype(np.int32)
-    cls = rng.integers(0, 3, len(pos)).astype(np.int32)
-    S = 6
-    posj, segj, clsj = jnp.asarray(pos), jnp.asarray(seg), jnp.asarray(cls)
-    validj = jnp.asarray(valid)
-    mask = validj & (clsj == 1)
-
-    ref_axes = ta.batched_average_direction(posj, mask, segj, S)
-    tfs = ta.batched_axis_transform(ref_axes)
-    ref_crown, ref_trunk = rbv_mod.batched_split_rbv(
-        posj, clsj, validj, segj, S, tfs, 6, 8, 4, 8)
-
-    mesh = sharding.make_mesh()
-
-    def local(p, m, s_, c_, v):
-        axes = ta._batched_average_direction_sorted(
-            p, m, s_, S, 10, "data", interpret=True)
-        t = ta.batched_axis_transform(axes)
-        crown, trunk = rbv_mod._batched_split_rbv_sorted(
-            p, c_, v, s_, S, t, 6, 8, 4, 8, False, "data", interpret=True)
-        return axes.direction, crown.distances, trunk.distances
-
-    fn = jax.jit(shard_map(
-        local, mesh=mesh,
-        in_specs=(P("data", None), P("data"), P("data"), P("data"),
-                  P("data")),
-        out_specs=(P(), P(), P()),
-        check_vma=False,  # Pallas (interpret) inside shard_map has no VMA
-    ))
-    sh = NamedSharding(mesh, P("data"))
-    direction, crown_d, trunk_d = fn(
-        jax.device_put(posj, NamedSharding(mesh, P("data", None))),
-        jax.device_put(mask, sh), jax.device_put(segj, sh),
-        jax.device_put(clsj, sh), jax.device_put(validj, sh))
-
-    np.testing.assert_allclose(np.asarray(direction),
-                               np.asarray(ref_axes.direction),
-                               rtol=1e-4, atol=1e-4)
-    # the sharded transforms ride float-psum'd axes, so grids agree to
-    # tolerance (the max composition itself is exact)
-    np.testing.assert_allclose(np.asarray(crown_d),
-                               np.asarray(ref_crown.distances),
-                               rtol=1e-3, atol=1e-3)
-    np.testing.assert_allclose(np.asarray(trunk_d),
-                               np.asarray(ref_trunk.distances),
-                               rtol=1e-3, atol=1e-3)
-
-
-# --- Session mesh mode (VERDICT r4 task 2: the mesh is a Session MODE) ----
-
-
 def test_session_mesh_mode_end_to_end():
     """Session(cfg, mesh=...) drives the WHOLE user surface on the 8-CPU
     mesh — segment, characteristics table, render, LOD + adaptive masks

@@ -1,6 +1,6 @@
-"""treee-tpu: a TPU-native forest-LiDAR point-cloud framework.
+"""treee-tpu: a GPU-accelerated forest-LiDAR point-cloud framework.
 
-A ground-up JAX/XLA/Pallas rebuild of the capability set of antonWetzel/treee
+A ground-up JAX/XLA rebuild of the capability set of antonWetzel/treee
 (Rust/wgpu importer, tree segmenter, interactive viewer — see SURVEY.md): .las/.laz
 ingest, Morton linear octree, per-tree segmentation, per-segment characteristics,
 interactive editing as pure jitted state transitions, and a splat renderer with

@@ -7,19 +7,16 @@ slice areas (calculations.rs:430-452), derives ground/crown separator heights
 from the area profile (:201-267), classifies points (:150-163), and later
 computes per-point expansion/height/curvature properties (:269-376).
 
-The TPU redesign runs ALL segments in one fused pass over fixed [S, MS] tables:
+The array redesign runs ALL segments in one fused pass over fixed [S, MS] tables:
 
 - *Sorted, scatter-free reduction*: one lexicographic ``lax.sort`` by
   (segment, y) makes every (segment, slice) bucket a contiguous run; per-bucket
   support maxima and bboxes then come from log-depth segmented doubling scans +
-  a ``searchsorted`` table extraction.  Measured on v5e at 15M points
-  (tools/microbench.py): the scatter formulation costs ~170 ms per scattered
-  [N] operand column (~1.4 s for the [N,8] supports; ``indices_are_sorted`` and
-  masked-to-drop variants are no faster), while the sort is ~200 ms once and
-  each doubling pass ~3-8 ms — the sorted pipeline replaces ~11 N-column
-  scatter passes with one sort.
-- *Slice areas*: each point scores K support directions (one [N,2]x[2,K] MXU
-  matmul); the per-bucket max scores define half-planes whose intersection
+  a ``searchsorted`` table extraction: one sort in place of ~11 scatter
+  passes over [N] operand columns (whether that trade still wins on the GPU
+  is an open question in PERF.md).
+- *Slice areas*: each point scores K support directions (one [N,2]x[2,K]
+  product); the per-bucket max scores define half-planes whose intersection
   polygon's shoelace area approximates the hull area (exact up to the K-gon
   circumscription error, ~2.6% for K=16 on a disk).
 - *Separators*: the reference's sequential find-first scans over the area
@@ -35,18 +32,18 @@ from __future__ import annotations
 import functools
 import math
 
-import flax.struct
 import jax
 import jax.numpy as jnp
 
 from .cloud import CLASS_CROWN, CLASS_GROUND, CLASS_TRUNK
 from .config import CharacteristicsConfig
 from .ops import eigen, neighbors
+from .utils import struct
 
 INF = jnp.float32(3.0e38)
 
 
-class SegmentTable(flax.struct.PyTreeNode):
+class SegmentTable(struct.PyTreeNode):
     """Per-segment analytics, indexed by segment id (row 0 = deleted/unused).
 
     Mirrors SegmentData/SegmentInformation (calculations.rs:35-43,191-197).
@@ -92,7 +89,7 @@ def _areas_from_supports(s: jax.Array, k_dirs: int) -> jax.Array:
     return jnp.where(has_any, area, 0.0)
 
 
-_SCAN_BLOCK = 256  # two lane groups; log2 = 8 in-block passes
+_SCAN_BLOCK = 256  # log2 = 8 in-block passes
 
 
 def _segmented_cummax(key: jax.Array, val: jax.Array) -> jax.Array:
@@ -171,31 +168,6 @@ def _segmented_cummax(key: jax.Array, val: jax.Array) -> jax.Array:
     return vb.reshape((nb * blk,) + vb.shape[2:])[:n]
 
 
-def _seg_cummax(
-    key: jax.Array, val: jax.Array, key_cap: int, cfg
-) -> jax.Array:
-    """Dispatch the per-run cumulative max: Pallas single-pass or XLA doubling.
-
-    ``key_cap`` is a static exclusive upper bound on the sorted run keys.  The
-    Pallas kernel compares keys in f32, so it only engages when every key is
-    exactly representable (< 2^24); otherwise — and on non-TPU backends by
-    default — the XLA two-level doubling scan runs.  Both are bit-identical
-    (tests/test_pallas.py).
-    """
-    from .config import resolve_use_pallas
-
-    if key_cap < (1 << 24) and resolve_use_pallas(cfg.use_pallas_scan):
-        from .ops.pallas_kernels import segmented_cummax_pallas
-
-        # off-TPU an explicit True flag runs the kernel in interpret mode so
-        # the integrated path stays testable on the CPU suite
-        return segmented_cummax_pallas(
-            key, val, block=cfg.pallas_scan_block,
-            interpret=jax.default_backend() != "tpu",
-        )
-    return _segmented_cummax(key, val)
-
-
 def _run_end_index(
     key_sorted: jax.Array, n_buckets: int, stride: int | None = None
 ) -> tuple[jax.Array, jax.Array]:
@@ -203,10 +175,8 @@ def _run_end_index(
 
     ``searchsorted(side=right) - 1`` lands on each bucket's run END, where a
     segmented cummax holds the full run max; absent buckets miss the equality
-    check.  787k queries into 15M keys measure ~156 ms on v5e with
-    method="scan_unrolled" (vs 441 ms default "scan", and cheaper than any
-    scatter-based extraction — tools/microbench.py).  Computed ONCE and
-    reused across column chunks of the same key array.
+    check.  Computed ONCE and reused across column chunks of the same key
+    array.
 
     With ``stride`` (keys grouped as group*stride + sub, e.g. segment*MS +
     slice), a two-level search replaces the flat one: a coarse searchsorted
@@ -257,12 +227,7 @@ def _run_last_table(
 ) -> jax.Array:
     """table[b] = run max for bucket b, from the cummax'd sorted values.
 
-    The row gather's [n_buckets, C] output takes the 16x lane-padded TPU
-    layout, but n_buckets = S*MS is N-independent (~400 MB at the default
-    capacities) — unlike the [N,*]-output gathers that OOM'd 30M points
-    (compute_segments packed-separator note).  Per-column 1-D gathers here
-    measured ~120 ms SLOWER at 15M (C x the lookup count dominates the
-    padded write)."""
+    One row gather of [n_buckets, C]; n_buckets = S*MS is N-independent."""
     idx, hit = _run_end_index(key_sorted, n_buckets, stride)
     v = val_cum[idx]
     hit_b = hit[:, None] if v.ndim == 2 else hit
@@ -281,19 +246,17 @@ def _chunked_support_table(
 
     ``make_scores(c0, c1)`` materializes score columns [N, c1-c0].  Peak
     memory of the characteristics phase scales with the widest live score
-    buffer — the [N, K] form is what OOM'd 30M points on one v5e chip
-    (CLAUDE.md round-1 state); chunking divides that by K/chunk at identical
-    total pass work.  The run-end searchsorted is shared across chunks.
+    buffer; chunking divides that by K/chunk at identical total pass work.  The run-end searchsorted is shared across chunks.
     """
     chunk = cfg.score_chunk
     if chunk <= 0 or chunk >= n_cols:
-        cum = _seg_cummax(bucket_s, make_scores(0, n_cols), n_buckets + 1, cfg)
+        cum = _segmented_cummax(bucket_s, make_scores(0, n_cols))
         return _run_last_table(bucket_s, cum, n_buckets, -INF, stride)
     idx, hit = _run_end_index(bucket_s, n_buckets, stride)
     tabs = []
     for c0 in range(0, n_cols, chunk):
         c1 = min(c0 + chunk, n_cols)
-        cum = _seg_cummax(bucket_s, make_scores(c0, c1), n_buckets + 1, cfg)
+        cum = _segmented_cummax(bucket_s, make_scores(c0, c1))
         tabs.append(jnp.where(hit[:, None], cum[idx], -INF))
     return jnp.concatenate(tabs, axis=1)
 
@@ -308,7 +271,7 @@ def slice_areas(
     """Convex area per bucket via K support half-planes + shoelace.
 
     Replaces per-slice convex polygon growth (calculations.rs:430-452,
-    segmenting.rs:526-545 centroid/area).  One [N,2]x[2,K] MXU matmul scores
+    segmenting.rs:526-545 centroid/area).  One [N,2]x[2,K] product scores
     every point against K angularly ordered directions; one scatter-max per
     bucket yields the support values s_k; the bucket's hull is approximated by
     the circumscribed polygon cut by the half-planes {x . u_k <= s_k}, whose
@@ -318,7 +281,10 @@ def slice_areas(
     Returns f32[n_buckets].
     """
     dirs = _support_directions(k_dirs)                   # [2,K]
-    scores = jnp.dot(xz, dirs, preferred_element_type=jnp.float32)  # [N,K]
+    # HIGHEST: the support maxima feed hull areas and the separators, and
+    # the GPU would otherwise round the product to TF32
+    scores = jnp.dot(xz, dirs, preferred_element_type=jnp.float32,
+                     precision=jax.lax.Precision.HIGHEST)  # [N,K]
     tgt = jnp.where(include, bucket, n_buckets)
     s = jnp.full((n_buckets + 1, k_dirs), -INF).at[tgt].max(scores)[:n_buckets]
     return _areas_from_supports(s, k_dirs)
@@ -400,8 +366,7 @@ def compute_segments(
     yext = jnp.maximum(yhi - ylo, 1e-6)
     qy = jnp.clip(((y - ylo) * (qmax / yext)).astype(jnp.int32), 0, qmax)
     key = (jnp.where(live0, segment, s_cap).astype(jnp.int32) << qbits) | qy
-    # is_stable=False: v5e stable sort costs +40% (probe_sort4 2026-08-20:
-    # 69.4 -> 49.8 ms at 15M for key + 2 payloads).  Everything downstream
+    # is_stable=False: a stable sort costs more, and everything downstream
     # is tie-order independent: y_s/run boundaries come from the KEYS
     # (identical either way), and x_s/z_s only ever feed per-run MAXIMA
     # (support scans gathered at run ends) — commutative reductions.
@@ -438,9 +403,7 @@ def compute_segments(
         # broadcast min y down each run by a fill-from-run-start segmented
         # scan (cheaper than an N-lookup gather)
         is_start = jnp.concatenate([jnp.ones(1, bool), seg_s[1:] != seg_s[:-1]])
-        min_y_pt = _seg_cummax(
-            seg_s, jnp.where(is_start, y_s, -INF), s_cap + 1, cfg
-        )
+        min_y_pt = _segmented_cummax(seg_s, jnp.where(is_start, y_s, -INF))
     else:
         # sharded: the global min may live on another shard; read the merged
         # table (s_cap is tiny and replicated)
@@ -544,11 +507,8 @@ def compute_segments(
     )
 
     # --- classification (calculations.rs:150-163); both separators ride ONE
-    # [N] gather of a PACKED i32 (16+16-bit quantized seps).  A [S,2]-row
-    # gather would cost the same lookup count BUT its [N,2] OUTPUT gets the
-    # 64x lane-padded layout (measured: a 16M-row [S,2] gather output is
-    # 8 GB — the very thing that OOM'd 30M points); packing keeps the output
-    # a dense [N] column.  Quantization (yext/65535 <= ~1 mm) only moves the
+    # [N] gather of a PACKED i32 (16+16-bit quantized seps), one dense [N]
+    # column instead of an [N,2] gather output.  Quantization (yext/65535 <= ~1 mm) only moves the
     # class boundary for points within that distance of a separator. ---
     qsc = 65535.0 / yext
     qg = jnp.clip(((ground_sep - ylo) * qsc).astype(jnp.int32), 0, 65535)
@@ -645,10 +605,8 @@ def segment_properties(
     seg = jnp.where(valid & (segment > 0) & (segment < s_cap), segment, 0)
     live = seg > 0
     min_y = table.lo[:, 1]
-    # (min_y, 1/height) per point via ONE packed-i32 [N] gather: a [S,2] row
-    # gather's [N,2] output takes the 64x lane-padded layout (7.7 GB at 15M,
-    # see compute_segments), so both 16-bit-quantized values share a dense
-    # column instead
+    # (min_y, 1/height) per point via ONE packed-i32 [N] gather: both
+    # 16-bit-quantized values share a dense column (see compute_segments)
     height_ext = jnp.maximum(table.hi[:, 1] - table.lo[:, 1], 1e-6)
     ylo_s = jnp.min(min_y)
     yext_s = jnp.maximum(jnp.max(table.hi[:, 1]) - ylo_s, 1e-6)
@@ -723,8 +681,7 @@ def _curv_per_row(i, d, nb):
 
 def _normals_per_row(i, d, nb):
     """knn_grid_reduce per_row: smallest eigenvector split into
-    per-component [T] leaves — a stacked [c,T,3] map output takes v5e's
-    trailing-dim lane padding (see knn_grid_reduce)."""
+    per-component [T] leaves (knn_grid_reduce maps [T]-shaped leaves)."""
     v = eigen.smallest_eigenvector(
         neighbors.neighbor_covariance_from(nb, nbr_valid=d < INF))
     return v[:, 0], v[:, 1], v[:, 2]
@@ -750,15 +707,12 @@ def segment_curvature(
 
     NOT itself jitted: the grid branch must stay EAGER so
     knn_grid_reduce's host-side slab/block dispatch can run (a traced
-    multi-million-row grid call takes the single fused map and crashes
-    the v5e worker — CLAUDE.md crash rules; an earlier @jit on this
-    function silently forced exactly that).  The brute path dispatches
+    multi-million-row grid call takes the single fused map instead).  The brute path dispatches
     to a jitted inner function, so jitted callers inline it as before.
     """
     if use_grid:
         # fused per-tile k-NN + covariance + eigenvalues: the separate
-        # [N,k] / [N,k,3] forms compile-OOM at 30M rows on v5e (15-46 GB
-        # lane-padded; see knn_grid_reduce)
+        # [N,k] / [N,k,3] forms are tens of GB at scan scale
         curve = neighbors.knn_grid_reduce(pos, member, cell_size,
                                           _curv_per_row, k=k)
         return jnp.where(member, curve, 0.0)

@@ -7,7 +7,7 @@ Vec<Point3>>`` of 1 m height slices while loading (treee/src/loading.rs:14-29), 
 (treee/src/interactive/mod.rs:31).  Every edit shuffles Vec elements and re-uploads
 whole segments to the GPU (interactive/mod.rs:116-149,182-221).
 
-The TPU-native design is one fixed-capacity SoA buffer that never changes shape:
+The array-native design is one fixed-capacity SoA buffer that never changes shape:
 
 - ``pos``            f32[N, 3]   point positions, y-up, centered at world_offset
 - ``segment``        i32[N]      segment id per point; 0 == deleted
@@ -21,10 +21,11 @@ All phase transitions and interactive edits are pure jitted functions
 
 from __future__ import annotations
 
-import flax.struct
 import jax
 import jax.numpy as jnp
 import numpy as np
+
+from .utils import struct
 
 # Segment id 0 doubles as "deleted" AND "no tree assigned", exactly like the
 # reference (interactive/mod.rs:19 DELETED_INDEX == segmenting.rs:198's
@@ -58,7 +59,7 @@ def include_mask(classification: jax.Array, mode: str) -> jax.Array:
     raise ValueError(f"unknown include mode {mode!r} (one of {INCLUDE_MODES})")
 
 
-class PointCloud(flax.struct.PyTreeNode):
+class PointCloud(struct.PyTreeNode):
     """Fixed-capacity SoA point store; the single source of truth on device."""
 
     pos: jax.Array            # f32[N, 3]
@@ -94,8 +95,8 @@ class PointCloud(flax.struct.PyTreeNode):
     ) -> "PointCloud":
         """Build a device cloud from host arrays, padding to ``capacity``.
 
-        Capacity defaults to the next multiple of 8*128 (one f32 VMEM tile worth of
-        rows) so downstream kernels see aligned shapes.
+        Capacity defaults to the next multiple of 1024 rows, so scenes of
+        similar size share compiled shapes.
         """
         n = pos.shape[0]
         if capacity is None:

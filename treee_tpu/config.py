@@ -15,7 +15,7 @@ same knobs are first-class dataclasses with the reference's defaults:
   min crown diameter 2.0 m                          (treee/src/calculations.rs:204-206)
 - brush radius default 0.5, slider 0.1-10           (treee/src/interactive/mod.rs:259,455-463)
 
-Capacity fields are new: TPU kernels need static shapes, so every variable-size
+Capacity fields are new: compiled XLA programs need static shapes, so every variable-size
 collection in the reference (per-segment Vecs, per-slice trees, chunk lists) becomes
 a padded array whose capacity is fixed at trace time.
 """
@@ -27,42 +27,8 @@ import math
 
 
 def round_up(x: int, m: int) -> int:
-    """Round ``x`` up to a multiple of ``m`` (TPU lane/sublane alignment)."""
+    """Round ``x`` up to a multiple of ``m``."""
     return ((x + m - 1) // m) * m
-
-
-def resolve_use_pallas(flag: bool | None) -> bool:
-    """Resolve a tri-state pallas flag: None = auto (TPU backend only)."""
-    if flag is not None:
-        return flag
-    import jax
-
-    return jax.default_backend() == "tpu"
-
-
-def scatter_inventory_forced() -> bool:
-    """Env escape hatch ``TREEE_SCATTER_INVENTORY=1`` forces the scatter
-    formulation of the inventory reductions (trunk_axis.
-    batched_average_direction, rbv.batched_split_rbv) on ANY backend —
-    the runtime fallback for a real pod where the Pallas-in-shard_map
-    Mosaic lowering misbehaves (advisor r3: that lowering is
-    interpret-tested only; this env has no multi-chip hardware to
-    validate it on).  Both formulations are pinned equal by tests, so
-    flipping the flag changes performance, not results.  Read at trace
-    time: set it before the first inventory call (jit caches traces).
-    """
-    import os
-
-    return os.environ.get("TREEE_SCATTER_INVENTORY", "") in ("1", "true")
-
-
-def use_sorted_inventory() -> bool:
-    """True when the sorted-scan inventory fast paths may run (TPU
-    backend, unless :func:`scatter_inventory_forced`)."""
-    import jax
-
-    return (not scatter_inventory_forced()
-            and jax.default_backend() == "tpu")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,7 +37,7 @@ class SegmentationConfig:
 
     The reference segments by building per-1m-height-slice convex "tree" polygons
     merged under ``max_distance`` and tracking centroids top-down
-    (treee/src/segmenting.rs:110-235).  The TPU redesign keeps the same observable
+    (treee/src/segmenting.rs:110-235).  The array redesign keeps the same observable
     knobs but runs grid connected-components per band + centroid tracking via
     ``lax.scan`` + nearest-centroid (Voronoi-equivalent) point assignment.
     """
@@ -85,14 +51,13 @@ class SegmentationConfig:
     # cluster filter: the reference drops degenerate (near-zero-area) polygons;
     # our proxy drops clusters with fewer than min_points points
     min_points: int = 4
-    # --- static capacities (new; TPU fixed shapes) ---
+    # --- static capacities (new; fixed compiled shapes) ---
     max_bands: int = 64                 # max height bands (64 m of canopy)
     max_trees_per_band: int = 256       # max new clusters per band
     max_segments: int = 2048            # max tracked segments in a scene
     # CC occupancy grid resolution per axis: cells stay at max_distance until
     # the scene exceeds (grid_size-1)*d across (~287 m at d=0.75), then grow;
-    # 384 = 3*128 stays lane-aligned and costs 44% less CC/JFA/extract work
-    # than 512 (the grids dominate band_scan time at 15M points)
+    # CC/extract work scales with grid_size**2 (384**2 is 44% less than 512**2)
     grid_size: int = 384
     cc_iters: int = 24                  # label-propagation sweeps (with jumping)
     # compacted occupied-cell capacity for CC pointer jumps + cluster
@@ -100,67 +65,26 @@ class SegmentationConfig:
     # few 100k cells) — overflowing cells still converge via the sweeps
     cc_occupied_cap: int = 1 << 19
     match_rounds: int = 4               # mutual-nearest matching rounds per band
-    # pallas jump-flood kernel: measured within noise of the batched jnp JFA
-    # on v5e (31.3 vs 31.9 ms for 16 bands) — XLA fuses the roll/select
-    # chains — so it stays a tested alternate, default OFF
-    use_pallas: bool | None = False
     # packed-plane JFA: seed positions ride one 2x15-bit fixed-point i32
     # plane (s/64 lattice) instead of two f32 planes — ~2x less rolled HBM
     # traffic per direction at ~1 cm position quantization.  Fallback when
     # the brute-force Voronoi is disabled; requires grid_size <= 512.
-    # MEASURED on v5e (tools/probe_voronoi.py, 2026-08-18): 7.9 ms/call vs
-    # 12.6 plain at [64,384,384].
     use_packed_jfa: bool = True
-    # EXACT brute-force banded Voronoi at occupied cells only (one-hot MXU
+    # EXACT brute-force banded Voronoi at occupied cells only (one-hot matmul
     # row-select of each band's tracked table, chunked running min): the
     # flood fill sweeps ~9 steps x 8 rolled directions over the full
     # [B,G,G] plane stack, but winners are only read at the ~300k occupied
     # cells.  Work is N-independent (scales with cc_occupied_cap x
-    # max_segments).  Takes precedence over the JFA variants when set.
-    # MEASURED on v5e (tools/probe_voronoi.py, 2026-08-18): 5.0-5.2 ms/call
-    # at 124,761 occupied cells / 2,104 active slots, vs 7.9 packed /
-    # 12.6 plain JFA — and it also deletes the seed-grid scatters the JFA
-    # needs.  chunk in {128,256,512} is within noise.  4.3 ms after the
-    # arithmetic-cell-center fix (no [occ,2] row gather, 2026-08-19).
+    # max_segments).  Takes precedence over the JFA variants when set, and
+    # needs none of the seed-grid scatters the JFA does.
     use_bruteforce_voronoi: bool = True
     voronoi_chunk: int = 256            # tracked slots per running-min chunk
-    # VMEM-resident CC sweeps (ops/pallas_kernels.cc_sweep_pallas): each CC
-    # body runs cc_pallas_sweeps min-pool sweeps per band inside one kernel
-    # instead of 3 reduce_window HBM round trips, then the usual compact
-    # pointer jump.  Tri-state like use_pallas: None = auto (TPU only).
-    # MEASURED at 15M on v5e (tools/probe_cc.py, 2026-08-18): 48 sweeps x
-    # <=3 bodies = 94.3 ms FULLY converged (label agreement 1.000000 vs a
-    # run-to-fixpoint oracle) where the XLA 3-sweep default is 127.8 ms at
-    # 0.999864; sweeps are nearly free in VMEM, the compacted pointer jumps
-    # are both the cost and the convergence engine.  Re-tuned 2026-08-20
-    # (tools/probe_cc2.py): every max_bodies budget runs in full (the
-    # convergence check costs one extra pass to observe "no change"), so
-    # FEWER bodies with MORE sweeps wins; sweep count then trimmed to the
-    # smallest fully-converged budget: (64, 2) = 104.8 ms at 1.000000
-    # oracle agreement vs (128, 2) 115-121 and (48, 3) 120.8 (48 sweeps x 2
-    # bodies already dips to 0.999377 — keep the 64-sweep margin).  The
-    # unrolled budget is backstopped by a convergence-gated while_loop
-    # (segmentation._connected_components): scenes needing more jump phases
-    # than the tuned budget still converge, at the cost of one full-grid
-    # comparison in the typical case.
-    use_pallas_cc: bool | None = None
-    cc_pallas_sweeps: int = 64
-    cc_pallas_bodies: int = 2
     # sort-based cluster selection in _extract_clusters: lex-sort the
     # compacted accumulation-target candidates by (band, -count) instead of
     # a batched top_k over the full [B, G*G] grid.  Bit-identical selection
     # (stable sort reproduces top_k's biggest-first order and lowest-index
-    # tie-break; regression-tested).  MEASURED at the 15M bench grid on v5e
-    # (tools/probe_bandscan.py, 2026-08-19): cc+extract 208.3 ms sorted vs
-    # 214.5 top_k (both dominated by the shared CC/scatter work); the full
-    # 15M bench moved 0.899 -> 0.883 s (16.75 -> 16.98 Mpts/s).
+    # tie-break; regression-tested).
     use_sorted_extract: bool = True
-    # whole-band matching scan in one sequential-grid kernel
-    # (ops/pallas_kernels.match_scan_pallas).  Tri-state; None = auto (TPU
-    # only).  MEASURED on v5e (tools/probe_match.py, 2026-08-18): 10.46 vs
-    # 13.56 ms for the XLA lax.scan at B=64 C=256 T=2048 rounds=4, outputs
-    # bit-identical (active/pos agree 1.0, same n_alloc).
-    use_pallas_match: bool | None = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -180,25 +104,10 @@ class CharacteristicsConfig:
     # comfortably inside the separator thresholds' 1.5x margins
     hull_directions: int = 8
     # column-chunk the [N,K] segmented support scans to cap peak HBM at very
-    # large N (identical results; same total elements).  0/>=K = unchunked —
-    # the default: at 15M the chunk split costs ~2 extra pass sweeps and a
-    # second bucket extraction for no memory need (the real 30M OOM was the
-    # padded [N,2] gather output, fixed separately); bench.py drops to
-    # chunk=2 above 24M points for headroom.
+    # large N (identical results; same total elements).  0/>=K = unchunked,
+    # the default: a chunk split costs extra passes and a second bucket
+    # extraction.
     score_chunk: int = 0
-    # Pallas single-pass segmented cummax for the support/min-y scans: one
-    # load + one store per element with a VMEM carry across a sequential
-    # grid, vs the XLA two-level doubling scan's 8+ full-array HBM round
-    # trips.  Tri-state like RenderConfig.use_pallas: None = auto (TPU
-    # backend only).  Requires bucket ids < 2^24 (f32-exact in-kernel key
-    # compares) — larger capacities fall back to the XLA scan.
-    # MEASURED at 15M on v5e (tools/probe_pallas_scan.py, 2026-08-18):
-    # [N,12] support scan 65.5 ms vs 196.5 XLA, [N,4] 58.3 vs 91.3, [N] min-y
-    # 32.3 vs 39.3 at block=32768; block=8192 was step-latency-bound (1831
-    # grid steps) and 65536 gains nothing over 32768 ([N,4] 59.0 vs 58.3) —
-    # beyond ~32k the in-block log2(B) doubling passes dominate, not steps.
-    use_pallas_scan: bool | None = None
-    pallas_scan_block: int = 32768
 
 
 @dataclasses.dataclass(frozen=True)
@@ -209,11 +118,9 @@ class NeighborConfig:
     # candidate cap per neighboring cell; 27 cells * cap = candidate pool
     cell_capacity: int = 16
     # brute-force threshold: segments smaller than this use exact tiled
-    # brute force.  Tuned round 5 against the slab grid engine's real v5e
-    # cost: brute at 41k members = 238 ms and scales ~quadratically
-    # (~2.5 s at this cap), while the grid fallback costs ~18 s for a 78k
-    # segment (BENCH 30M focus row) — so brute wins comfortably up to
-    # 128k and keeps the focused subset render (~9 ms frames) too
+    # brute force; larger ones take the grid-hash engine.  Brute force
+    # grows quadratically with the member count, the grid engine linearly
+    # with a much larger constant; the crossover on the GPU is not measured
     brute_force_max: int = 131072
     query_tile: int = 1024              # queries per brute-force tile
 
@@ -239,12 +146,6 @@ class RenderConfig:
     # property range filter (point_cloud.wgsl:44-49); u32 range semantics
     prop_min: int = 0
     prop_max: int = 0xFFFFFFFF
-    # fused Pallas kernels for the image-space passes (splat dilation,
-    # eye-dome).  Measured on v5e at 720p: within noise of the XLA ops
-    # (47.3 vs 46.3 ms at 2M pts; 31.8 vs 34.0 ms at 60k) — XLA already
-    # fuses these elementwise/roll chains — while costing ~10 min extra
-    # compile, so they default OFF and remain as tested alternates.
-    use_pallas: bool | None = False
 
 
 @dataclasses.dataclass(frozen=True)

@@ -3,10 +3,10 @@
 Capability parity with ConvexHull in treee/src/interactive/hull.rs:447-580,
 which gift-wraps the filtered points (O(n * faces), strictly sequential edge
 queue).  Gift wrapping cannot be expressed as a fixed-shape data-parallel
-program, so the TPU-native split is:
+program, so the array-native split is:
 
 1. *Device reduction*: the hull's vertices are all extreme points; reduce the
-   candidate set with a K-direction support-point pass (one [N,3]x[3,K] MXU
+   candidate set with a K-direction support-point pass (one [N,3]x[3,K]
    matmul + scatter-max) — same trick as the 2-D slice areas.  K directions on
    a sphere bound the candidate set to <= K points independent of N.
 2. *Host hull*: qhull (scipy.spatial.ConvexHull) over the <= K candidates.
@@ -63,9 +63,9 @@ def support_candidates(pos: jax.Array, mask: jax.Array, dirs: jax.Array):
         if pad else dirs
 
     def body(_, d_chunk):
-        # HIGHEST: preferred_element_type does not stop bf16 INPUT
-        # truncation on the MXU — far-from-origin clouds would pick
-        # interior "support" points
+        # HIGHEST: preferred_element_type does not stop reduced-precision
+        # INPUT rounding (TF32 on the GPU) — far-from-origin clouds would
+        # pick interior "support" points
         scores = jnp.dot(pos, d_chunk.T,
                          precision=jax.lax.Precision.HIGHEST)
         scores = jnp.where(mask[:, None], scores, -INF)

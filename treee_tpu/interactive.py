@@ -107,8 +107,8 @@ def pick(
     if not include_deleted:
         eligible &= cloud.segment != DELETED_SEGMENT
     diff = cloud.pos - origin
-    # HIGHEST: the dot feeds a squared-distance subtraction (CLAUDE.md TPU
-    # rule); default-precision `along` makes perp2 garbage far from origin
+    # HIGHEST: the dot feeds a squared-distance subtraction; a TF32 `along`
+    # makes perp2 garbage far from origin
     along = jnp.dot(diff, direction, precision=jax.lax.Precision.HIGHEST)
     perp2 = jnp.sum(diff * diff, axis=-1) - along * along
     ok = eligible & (along >= 0.0) & (perp2 <= point_scale * point_scale)

@@ -2,10 +2,10 @@
 
 The reference has no spatial index at all (SURVEY.md §0: octree/LOD absent; its only
 spatial partitioning is 1 m height slices, treee/src/loading.rs:98-101).  The
-TPU-native backbone is a Morton-coded linear octree: quantize positions to a cubic
+array backbone is a Morton-coded linear octree: quantize positions to a cubic
 grid, interleave bits into one sortable key, and ``jax.lax.sort`` does the rest.
 
-Keys are 30-bit (10 bits per axis, 1024^3 cells) stored in int32: XLA's TPU sort is
+Keys are 30-bit (10 bits per axis, 1024^3 cells) stored in int32: sorts are
 fastest on 32-bit keys, and 10 octree levels is ample for LOD/culling on forest
 scans (sub-10cm cells on a 100 m tile).
 
@@ -74,5 +74,5 @@ def encode_positions(pos: jax.Array, lo: jax.Array, hi: jax.Array) -> jax.Array:
 
 
 def sort_by_key(keys: jax.Array, *values: jax.Array) -> tuple[jax.Array, ...]:
-    """Stable-sort ``values`` by Morton ``keys`` (radix sort under XLA on TPU)."""
+    """Stable-sort ``values`` by Morton ``keys``."""
     return jax.lax.sort((keys,) + values, dimension=0, num_keys=1)

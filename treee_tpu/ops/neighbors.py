@@ -2,10 +2,10 @@
 
 Replaces the reference's ``k-nearest`` KD-tree crate (k-nearest/src/kd_tree.rs:19-143)
 used for the 31-neighbor curvature property (treee/src/calculations.rs:328-373).
-Pointer-chasing KD-trees are hostile to TPUs; the TPU-native designs are:
+Pointer-chasing KD-trees are hostile to wide vector hardware; the array designs are:
 
 - ``knn_bruteforce``: tiled exact search.  Distances via the matmul identity
-  ``|q-p|^2 = |q|^2 + |p|^2 - 2 q.p`` so the inner product rides the MXU, then
+  ``|q-p|^2 = |q|^2 + |p|^2 - 2 q.p`` so the inner product is one matmul, then
   ``lax.top_k``.  Queries are processed in fixed tiles with ``lax.map`` to bound
   memory; exact for any k, used for segment-sized inputs and as the test oracle.
 
@@ -31,11 +31,12 @@ INF = jnp.float32(3.0e38)
 
 
 def _pairwise_sqdist(q: jax.Array, p: jax.Array) -> jax.Array:
-    """|q_i - p_j|^2 for f32[T,3] x f32[N,3] -> f32[T,N] via MXU matmul."""
+    """|q_i - p_j|^2 for f32[T,3] x f32[N,3] -> f32[T,N] via one matmul."""
     qn = jnp.sum(q * q, axis=-1, keepdims=True)
     pn = jnp.sum(p * p, axis=-1)
-    # HIGHEST keeps the MXU in f32 passes; the default bf16 truncation is far
-    # too coarse for squared-distance cancellation.
+    # HIGHEST keeps the product in full f32: the GPU's default TF32 (about
+    # three decimal digits) is far too coarse for squared-distance
+    # cancellation.
     cross = jnp.dot(
         q, p.T, preferred_element_type=jnp.float32,
         precision=jax.lax.Precision.HIGHEST,
@@ -114,15 +115,12 @@ def _knn_grid_map(
     dist [T,k][, nbrs [T,k,3]]) -> pytree of [T,...] leaves`` over query
     tiles.  Leaves keep their trailing dims in the [n_tiles, T, ...]
     stack — callers that fuse reductions (knn_grid_reduce) must return
-    [T]-shaped leaves to dodge v5e's trailing-dim tile padding (a [c,T,3]
-    stack lane-pads 3 -> 128).
+    [T]-shaped leaves.
 
-    CRASH RULE (bisected on the live chip, round 5): inside the lax.map
-    tile body, a gather from a full-[N] array with DATA-DEPENDENT
-    (random-access) indices crashes the v5e worker process at
-    multi-million N — `pos[cand]` ([T,C,3] row gather), `px[cand]`
-    (flat f32 column), and `valid[cand]` (bool) all fault, while
-    `order[slots]` / `spx[slots]` with CONTIGUOUS slot ranges run fine.
+    Gather rule (a workaround for a crash on the backend this engine was
+    first built for; not re-measured on the GPU): inside the lax.map tile
+    body, no gather from a full-[N] array uses DATA-DEPENDENT indices —
+    only CONTIGUOUS slot ranges (`order[slots]`, `spx[slots]`).
     So: coordinate columns are permuted into cell-sorted order ONCE
     outside the map, every in-tile gather uses the contiguous
     ``start + arange(cap)`` slot ranges, neighbor coordinates for
@@ -131,13 +129,10 @@ def _knn_grid_map(
     0x7FFFFFFF cid sentinel, sort to the end, and can never fall inside
     a real cell's searchsorted [start, end) run.
 
-    SCALE RULE (also bisected live): even with only contiguous gathers,
-    lax.top_k's INDEX path (+ take_along_axis) inside the map crashes
-    the worker at >= ~1024 map iterations (2M rows / tile=2048);
-    values-only top_k survives, and the full chain is fine at <= 512
-    iterations.  Large eager callers must therefore go through
-    knn_grid_reduce's host-side query blocking, which dispatches one
-    _grid_query_map per <= 2^20-row block against a hash built once.
+    Scale rule (same origin): one map execution spans at most ~512
+    tiles.  Large eager callers go through knn_grid_reduce's host-side
+    query blocking, which dispatches one _grid_query_map per <= 2^20-row
+    block against a hash built once.
 
     ``with_nbrs=True`` additionally hands per_tile the top-k neighbor
     coordinates so reduction callers never touch ``pos`` themselves."""
@@ -211,8 +206,8 @@ def _grid_query_map(hash_arrays, q_cells, q_pos, per_tile, n_out,
         cand_ok = in_grid[..., None] & (slots < end[..., None])
         slots = jnp.clip(slots, 0, n - 1).reshape(tile, -1)  # [T, 27*cap]
         cand_ok = cand_ok.reshape(tile, -1)
-        # contiguous-range gathers from the cell-sorted columns (the only
-        # in-map gather pattern that doesn't crash the worker; docstring).
+        # contiguous-range gathers from the cell-sorted columns (the
+        # gather rule, docstring).
         # Validity is free: the 0x7FFFFFFF-cid sentinel sorts invalid
         # points past every real [start, end) run, so cand_ok alone masks.
         cx = spx[slots]
@@ -225,13 +220,10 @@ def _grid_query_map(hash_arrays, q_cells, q_pos, per_tile, n_out,
         d = jnp.where(cand_ok, d, INF)
         neg, ci = jax.lax.top_k(-d, k)
         cand = order[slots]  # [T, 27*cap] point indices (contiguous slots)
-        # take_along_axis(·, ci) inside the map CRASHES the worker once
-        # the hash arrays reach ~2M rows (bisected: top_k WITH indices
-        # is fine — ci_only passed — and the variadic payload sort
-        # faults too; the take_along/gather lowering is the culprit).
-        # Select via one-hot compare-sums instead — the same trick the
-        # Pallas kernels use for VMEM gathers (CLAUDE.md).  Exact: ci
-        # rows are distinct slots, so each sum has one live term.
+        # select via one-hot compare-sums instead of take_along_axis(·,
+        # ci) inside the map (the gather rule in _knn_grid_map's
+        # docstring).  Exact: ci rows are distinct slots, so each sum has
+        # one live term.
         oh = ci[:, :, None] == jnp.arange(slots.shape[1],
                                           dtype=jnp.int32)  # [T,k,C]
         idx_t = jnp.sum(jnp.where(oh, cand[:, None, :], 0), axis=-1)
@@ -262,8 +254,8 @@ def knn_grid(
 ) -> tuple[jax.Array, jax.Array]:
     """Approximate k-NN via 27-cell candidate gather; see module docstring.
 
-    WARNING: the [N,k] outputs lane-pad k=31 -> 128 on v5e — ~15 GB EACH
-    at 30M rows (HBM OOM).  Multi-million-row callers that only need a
+    WARNING: the [N,k] outputs are GBs at multi-million rows.
+    Multi-million-row callers that only need a
     per-row reduction of the neighborhoods must use
     :func:`knn_grid_reduce` instead.
     """
@@ -286,15 +278,12 @@ def knn_grid_reduce(
 
     ``per_row(idx i32[T,k], dist f32[T,k], nbrs f32[T,k,3]) -> pytree of
     f32[T] leaves`` runs INSIDE each query tile, so nothing [N,k]-shaped
-    ever materializes.  This is the only viable form at large N on v5e
-    (round-5 finding, 30M grid-path curvature): [N,31] idx+dist alone
-    are ~30 GB (31 lane-pads to 128), the [N,k,3] neighbor gather is
-    46 GB, and even a chunked [c,chunk,3,3] covariance stack tiles to
-    64 GB — while per-tile everything is KBs and XLA fuses the
+    ever materializes: the [N,k] and [N,k,3] forms are GBs at scan
+    scale, while per tile everything is KBs and XLA fuses the
     gather -> covariance -> eigen chain without materialization.
     ``nbrs`` holds the neighbors' coordinates, gathered per column by the
     machinery — per_row must NOT gather rows of the full cloud itself
-    (crashes the worker; see _knn_grid_map) and must return [T]-shaped
+    (the gather rule in _knn_grid_map) and must return [T]-shaped
     leaves (split vectors into per-component arrays).  Not jitted:
     callers run under their own jit or rely on the op-by-op cache;
     per_row identity doesn't key a trace cache here.
@@ -305,10 +294,8 @@ def knn_grid_reduce(
     sides, so every interior query's full 27-cell neighborhood is
     present), each slab gets its own hash — anchored at the GLOBAL grid
     origin, so cells quantize identically — and its own map executions.
-    2^21 is the empirically-clean v5e bound: map executables touching
-    >= 4M-row arrays crash the worker regardless of blocking, while
-    repeated executions at 2M are proven stable (CLAUDE.md crash
-    rules).  Within-cell candidate order can differ from the global
+    2^21 comes from the same crash workaround as the gather rule (not
+    re-measured on the GPU).  Within-cell candidate order can differ from the global
     hash where a cell overflows cell_capacity (sort ties), the usual
     approximation knob.  TRACED callers can't host-loop and get the
     single fused map — a jitted caller at multi-million rows must run
@@ -365,7 +352,7 @@ def _blocked_queries(pos, valid, cell_size, per_row, k, cell_capacity,
         lambda *leaves: jnp.concatenate(leaves)[:n], *parts)
 
 
-GRID_SRC_MAX = 1 << 21  # largest empirically-clean in-map array size (v5e)
+GRID_SRC_MAX = 1 << 21  # largest in-map array size (see _grid_slab_reduce)
 
 
 def _grid_slab_reduce(pos, valid, cell_size, per_row, k, cell_capacity,
@@ -434,7 +421,7 @@ def _grid_slab_reduce(pos, valid, cell_size, per_row, k, cell_capacity,
             raise RuntimeError(
                 "grid k-NN: a one-cell 3x3x3 neighborhood holds > "
                 f"{src_max} points after splitting along all three axes "
-                "— beyond the v5e in-map array bound; raise grid_bits "
+                "— beyond the in-map array bound; raise grid_bits "
                 "when the effective cell is extent-limited "
                 "(_effective_cell coarsening), or reduce cell_size when "
                 "the caller's raw granularity is what's binding")
@@ -473,12 +460,16 @@ def neighbor_covariance_from(nbrs, nbr_valid=None):
         count = jnp.float32(nbrs.shape[1])
         mean = jnp.mean(nbrs, axis=1, keepdims=True)
         diff = nbrs - mean
-        return jnp.einsum("nki,nkj->nij", diff, diff) / count
+        return jnp.einsum("nki,nkj->nij", diff, diff,
+                          precision=jax.lax.Precision.HIGHEST) / count
     w = nbr_valid.astype(jnp.float32)[..., None]          # [M,k,1]
     count = jnp.maximum(jnp.sum(w, axis=1, keepdims=True), 1.0)  # [M,1,1]
     mean = jnp.sum(nbrs * w, axis=1, keepdims=True) / count      # [M,1,3]
     diff = (nbrs - mean) * w
-    cov = jnp.einsum("nki,nkj->nij", diff, diff)
+    # HIGHEST: curvature is an eigenvalue ratio of this matrix, and TF32's
+    # ~1e-3 relative error would move the small eigenvalue it divides by
+    cov = jnp.einsum("nki,nkj->nij", diff, diff,
+                     precision=jax.lax.Precision.HIGHEST)
     return cov / count
 
 
@@ -490,10 +481,9 @@ def neighbor_covariance(
     Mean over neighbors then outer-product accumulation, matching
     calculations.rs:342-365 (division by neighbor count, not count-1).
 
-    WARNING: materializes a [N,k,3] neighbor gather — 46 GB at 30M rows
-    x k=31 on v5e (compile-time HBM OOM).  Fine for brute-path segment
-    subsets (<=131072 rows at the default brute_force_max: ~0.5 GB
-    padded); full-cloud callers must fuse through
+    WARNING: materializes a [N,k,3] neighbor gather — over 10 GB at 30M
+    rows x k=31.  Fine for brute-path segment subsets (<=131072 rows at
+    the default brute_force_max); full-cloud callers must fuse through
     :func:`knn_grid_reduce`.
     """
     return _cov_block(pos, nbr_idx, nbr_valid)

@@ -2,7 +2,7 @@
 
 The reference renders brute-force — every chunk's full point buffer every frame, no
 octree/LOD/culling (treee/src/program.rs:309-311; SURVEY.md §0 negative findings).
-This module is the improvement the reference lacks, designed TPU-first:
+This module is the improvement the reference lacks, designed as array programs:
 
 - *Build* = one ``jax.lax.sort`` over Morton keys (ops/morton.py) plus segmented
   rank computation.  No pointers, no recursion: a node at level ``l`` is the run of
@@ -20,11 +20,11 @@ from __future__ import annotations
 
 import functools
 
-import flax.struct
 import jax
 import jax.numpy as jnp
 
 from . import morton
+from ..utils import struct
 
 INVALID_KEY = jnp.int32(0x7FFFFFFF)
 
@@ -43,13 +43,9 @@ _CUMMAX_BLOCK = 256
 def _cummax(x: jax.Array) -> jax.Array:
     """Cumulative max, two-level: blocked doubling + tiny cross-block scan.
 
-    Neither library form survives TPU at 15M elements:
-    ``jnp.maximum.accumulate`` lowers to an O(N^2)-flavored reduce_window
-    (40 s), and ``lax.associative_scan``'s recursive odd/even slicing blows up
-    XLA *compile* time somewhere between 1M and 4M elements (measured: 15M
-    never finishes; the pipeline's historic 10-30 min compiles were this).
-    Flat shifted-max doubling works (24 passes, ~50 ms at 15M); the blocked
-    form cuts that to log2(256)=8 in-block passes plus an
+    ``lax.associative_scan``'s recursive odd/even slicing blows up XLA
+    *compile* time somewhere between 1M and 4M elements.  Flat shifted-max
+    doubling takes 24 passes at 15M; the blocked form cuts that to log2(256)=8 in-block passes plus an
     ``associative_scan`` over the N/256 block maxima (safe at that size —
     same structure as characteristics._segmented_cummax).
     """
@@ -85,7 +81,7 @@ def _revcummin(x: jax.Array) -> jax.Array:
     return -jnp.flip(_cummax(jnp.flip(-x)))
 
 
-class Octree(flax.struct.PyTreeNode):
+class Octree(struct.PyTreeNode):
     """Linear octree over a fixed-capacity point set.
 
     Attributes:
@@ -131,9 +127,8 @@ def build_keys(pos: jax.Array, valid: jax.Array) -> jax.Array:
 
     The benchmark's fused step consumes only ``tree.keys`` (XLA DCEs the
     order/rank/inv payloads), and a KEY-ONLY sort returns the identical
-    sorted array whether stable or not (same multiset) — but v5e's stable
-    sort costs nearly 2x (probe_sort4 2026-08-20: 44.3 vs 23.3 ms at
-    15M).  Callers that need ``order``/``rank`` (LOD masks) use
+    sorted array whether stable or not (same multiset), and a stable sort
+    costs more.  Callers that need ``order``/``rank`` (LOD masks) use
     :func:`build`, whose stable sort keeps tie order canonical so the
     sharded shard-local sorts compose to the global one bit-exactly
     (parallel/sharding.py Morton-range notes).
@@ -410,7 +405,7 @@ def adaptive_counts(
     return jnp.stack([jnp.sum(k.astype(jnp.int32)) for k in keeps])
 
 
-class NodeTable(flax.struct.PyTreeNode):
+class NodeTable(struct.PyTreeNode):
     """Padded per-level node table: contiguous sorted-point ranges per node.
 
     Attributes:
@@ -500,11 +495,8 @@ def compact_indices(mask: jax.Array, capacity: int) -> tuple[jax.Array, jax.Arra
 
     Implementation: pack ``(~mask << 30) | row`` into one i32 and key-only
     unstable-sort it — masked rows land first, in ascending row order, so
-    the head slice IS the compaction.  On v5e a single-key unstable sort at
-    15M rows costs ~23-44 ms (tools/probe_sort4.py) vs ~200 ms for the
-    cumsum + [N]-operand scatter form this replaced (CLAUDE.md primitive
-    costs: scatter ~155 ms + cumsum; measured end-to-end in BENCH_r05's
-    curvature_ms).  Output is bit-identical: both forms keep the first
+    the head slice IS the compaction, with no cumsum + [N]-operand
+    scatter.  Output is bit-identical to that form: both forms keep the first
     ``capacity`` masked rows in ascending original order with 0-padding.
     The packed form needs row indices < 2^30; larger arrays take the
     scatter fallback.
@@ -534,11 +526,8 @@ def snug_capacity(n: int, headroom: float = 1.25, floor: int = 4096) -> int:
     """Snug padded row capacity for an ``n``-row LOD subset (host-side int).
 
     Projection/scatter frame cost scales with the PADDED row count, not the
-    live count (measured on v5e: a 52k subset padded to 2M rows = 26 ms/frame,
-    snug 64k = 7 ms, tools/profile_frame.py).  Next-power-of-two padding still
-    wastes up to 2x at multi-million-row subsets — the 15M-scene adaptive
-    subset (6.14M live) padded to 8.39M rows cost 74 ms/frame vs ~57 ms at a
-    6.29M-row cap — so the granule is 1/16 of the magnitude (2^max(12, b-4)):
+    live count.  Next-power-of-two padding wastes up to 2x at
+    multi-million-row subsets, so the granule is 1/16 of the magnitude (2^max(12, b-4)):
     at most ~6% padding waste while keeping XLA-friendly aligned sizes and a
     small reusable-shape set.  ``headroom`` leaves room for draw/restore edits
     growing the subset before the next rebuild.

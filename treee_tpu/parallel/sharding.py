@@ -2,7 +2,7 @@
 
 The reference is single-process shared-memory (SURVEY.md §2.6: rayon pools +
 crossbeam channels; no distributed backend).  Scaling the long axis there means
-scaling point count — so the TPU-native distribution is data parallelism over
+scaling point count — so the distribution here is data parallelism over
 points with small replicated state:
 
 - points are sharded along N across the ``data`` mesh axis; ``shard_points``
@@ -11,7 +11,7 @@ points with small replicated state:
   shard's contiguous range is spatially compact — the layout that keeps any
   future halo/neighbor traffic local to few devices;
 - segmentation's only cross-shard coupling is the band moment grids: each
-  device rasterizes its local points, one ``psum`` over ICI produces the global
+  device rasterizes its local points, one ``psum`` over NVLink produces the global
   grids, the tracking scan runs replicated (tiny state), and Voronoi assignment
   is local per shard;
 - characteristics likewise reduce per-(segment, slice) support maxima with
@@ -20,7 +20,7 @@ points with small replicated state:
   winner-takes resolve.
 
 This is the 100M+ point path (BASELINE.md config 5): grid psums are O(B*G^2),
-independent of N, so ICI traffic does not grow with the survey size.
+independent of N, so NVLink traffic does not grow with the survey size.
 """
 
 from __future__ import annotations
@@ -113,7 +113,7 @@ def _segment_local(pos, valid, d, scfg, axis):
     top = seg.band_anchor(hist, lo[1], hi[1], scfg)
     band, cx, cz = seg.point_cells(pos, valid, lo, hi, s, scfg, top=top)
     cnt = seg.moment_grids(pos, valid, band, cx, cz, scfg)
-    # the one big collective: global band count grids over ICI
+    # the one big collective: global band count grids over NVLink
     cnt = jax.lax.psum(cnt, axis)
     # replicated tracking scan (identical on every device)
     slot_grids, n_alloc, tracked_pos_b, active_b = seg.band_scan(
@@ -142,7 +142,7 @@ def sharded_segment(mesh: Mesh, cfg: Config = DEFAULT_CONFIG, axis: str = "data"
         mesh=mesh,
         in_specs=(P(axis, None), P(axis), P()),
         out_specs=(P(axis), P()),
-        check_vma=False,  # Pallas calls inside (CC sweeps) have no VMA info
+        check_vma=False,
     )
     return jax.jit(fn)
 
@@ -173,7 +173,7 @@ def sharded_pipeline_step(mesh: Mesh, cfg: Config = DEFAULT_CONFIG, axis: str = 
         mesh=mesh,
         in_specs=(P(axis, None), P(axis), P()),
         out_specs=(P(axis), P(axis), P(), P()),
-        check_vma=False,  # Pallas calls inside have no VMA info
+        check_vma=False,
     )
     return jax.jit(fn)
 
@@ -207,7 +207,7 @@ def sharded_session_step(mesh: Mesh, cfg: Config = DEFAULT_CONFIG,
         mesh=mesh,
         in_specs=(P(axis, None), P(axis), P()),
         out_specs=(P(axis), P(axis), P(), P(), P(), P(), P()),
-        check_vma=False,  # Pallas calls inside have no VMA info
+        check_vma=False,
     )
     jitted = jax.jit(fn)
 
@@ -256,10 +256,10 @@ def sharded_inventory(mesh: Mesh, cfg: Config = DEFAULT_CONFIG,
     rbv.batched_split_rbv, Session.inventory's device core) are all
     per-segment scatter tables, so the sharded form is shard-local scatters
     + one collective per table: pmin/pmax for extents and max-method
-    distance grids (EXACT), psum for the axis means and mean-method grids
-    (float sums in shard order).  Collective volume is O(S * slices *
-    sectors), independent of the per-shard point count — same scaling shape
-    as the segmentation grid psum.  The per-segment [S]-math (directions,
+    distance grids and integer psums for the axis means (all EXACT), float
+    psums for mean-method grids (shard order).  Collective volume is
+    O(S * slices * sectors), independent of the per-shard point count — same
+    scaling shape as the segmentation grid psum.  The per-segment [S]-math (directions,
     frames, trait formulas) then runs replicated.
     """
     from .. import rbv as rbv_mod
@@ -291,7 +291,7 @@ def sharded_inventory(mesh: Mesh, cfg: Config = DEFAULT_CONFIG,
         mesh=mesh,
         in_specs=(P(axis, None), P(axis), P(axis), P(axis)),
         out_specs=(P(), P(), P(), P()),
-        check_vma=False,  # sorted-scan Pallas kernels inside on TPU
+        check_vma=False,
     )
     return jax.jit(fn)
 
@@ -324,7 +324,7 @@ def sharded_render(mesh: Mesh, cfg: Config = DEFAULT_CONFIG, axis: str = "data")
         mesh=mesh,
         in_specs=(P(axis, None), P(axis), P(axis), P(), P()),
         out_specs=P(),
-        check_vma=False,  # optional Pallas render kernels inside
+        check_vma=False,
     )
     return jax.jit(fn)
 
@@ -336,7 +336,7 @@ def sharded_rasters(mesh: Mesh, pos_s, classification_s, live_s, lo, hi,
     single-device rasters.compute_rasters.
 
     Each device scatter-min/maxes its local shard into the full [H, W]
-    height grid; ONE ``pmin`` (ground) + ``pmax`` (surface) over ICI
+    height grid; ONE ``pmin`` (ground) + ``pmax`` (surface) over NVLink
     composite them — f32 min/max are exact, so the composited sentinel
     grids equal the single-device scatters bit-for-bit.  Hole fill and
     NODATA conversion then run replicated (O(grid), independent of N).
@@ -369,7 +369,7 @@ def sharded_rasters(mesh: Mesh, pos_s, classification_s, live_s, lo, hi,
 # MONOTONE in slot order, so a shard's carry folds in with one elementwise
 # max/min against the prefix — the same shifted-doubling trick as
 # ops/octree._cummax, lifted one level to the mesh.  Each carry is one
-# all_gather of a per-shard scalar over ICI.
+# all_gather of a per-shard scalar over NVLink.
 
 
 def _prev_max(x, axis: str, sentinel):

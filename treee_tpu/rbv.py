@@ -6,7 +6,7 @@ radial distances around a center axis, optionally symmetrized; derive landmark
 points and the forestry traits (DBH, trunk cross area, crown diameter /
 projected area / volume / surface, stem & wood volume, hull.rs:926-995).
 
-TPU redesign notes:
+Array redesign notes:
 - the per-(slice, sector) max/mean distances are one scatter reduction instead
   of a point loop (hull.rs:745-764);
 - the reference centers the cylinder with Ritter's sequential bounding-sphere
@@ -23,10 +23,11 @@ from __future__ import annotations
 import functools
 import math
 
-import flax.struct
 import jax
 import jax.numpy as jnp
 import numpy as np
+
+from .utils import struct
 
 INF = jnp.float32(3.0e38)
 
@@ -34,7 +35,7 @@ METHOD_MAX = 0
 METHOD_MEAN = 1
 
 
-class RadialBoundingVolume(flax.struct.PyTreeNode):
+class RadialBoundingVolume(struct.PyTreeNode):
     """Distances grid + cylinder frame (hull.rs:631-645)."""
 
     center: jax.Array       # f32[2] (x, z) in axis space
@@ -42,8 +43,8 @@ class RadialBoundingVolume(flax.struct.PyTreeNode):
     slice_height: jax.Array # f32
     distances: jax.Array    # f32[slices * sectors]
     transform: jax.Array    # f32[4,4] axis frame (identity when untilted)
-    slices: int = flax.struct.field(pytree_node=False)
-    sectors: int = flax.struct.field(pytree_node=False)
+    slices: int = struct.field(pytree_node=False)
+    sectors: int = struct.field(pytree_node=False)
 
 
 def _apply_inverse(transform: jax.Array, pos: jax.Array) -> jax.Array:
@@ -147,7 +148,7 @@ def landmarks(rbv: RadialBoundingVolume, base, interpolate_height: bool) -> jax.
     return jnp.stack([jnp.cos(ang) * d, jnp.sin(ang) * d, yy], axis=-1).reshape(-1)
 
 
-class Traits(flax.struct.PyTreeNode):
+class Traits(struct.PyTreeNode):
     """Forestry traits (hull.rs:998-1008)."""
 
     diameter_breast_height: jax.Array
@@ -240,7 +241,7 @@ def split_rbv(
     return crown, trunk
 
 
-class BatchedRBV(flax.struct.PyTreeNode):
+class BatchedRBV(struct.PyTreeNode):
     """RBVs of EVERY segment at once, [S]-leading (axis-space, center = 0).
 
     Row i carries the same quantities as build_rbv(transform=axes[i]) on
@@ -250,8 +251,8 @@ class BatchedRBV(flax.struct.PyTreeNode):
     min_y: jax.Array        # f32[S]
     slice_height: jax.Array # f32[S]
     distances: jax.Array    # f32[S, slices*sectors]
-    slices: int = flax.struct.field(pytree_node=False)
-    sectors: int = flax.struct.field(pytree_node=False)
+    slices: int = struct.field(pytree_node=False)
+    sectors: int = struct.field(pytree_node=False)
 
 
 def _batched_rbv_grid(x, z, y, mask, segment, n_segments, slices, sectors,
@@ -315,197 +316,6 @@ def _batched_rbv_grid(x, z, y, mask, segment, n_segments, slices, sectors,
     )
 
 
-def _run_fill(key_s, left, right, table, use_scan, interpret):
-    """Broadcast per-segment rows ``table`` f32[S, C] to per-point rows
-    f32[N, C] over segment-sorted points.
-
-    ``use_scan`` (TPU, or interpret-mode tests): ONE S-row scatter to the
-    run-start slots + ONE Pallas segmented fill scan over all C columns —
-    replaces C per-point gathers measured ~100 ms EACH at 15M on v5e
-    (tools/probe_inventory.py).  Off-TPU the per-point column gathers run
-    instead: routing these fills through the XLA segmented scan
-    (associative_scan with a tuple carry) deterministically poisons this
-    environment's CPU client — a LATER unrelated jit execution fails with
-    "supplied 3 buffers but compiled program expected 4", cleared only by
-    jax.clear_caches() (round-3 CLAUDE.md note).  Both branches produce
-    exact value copies, pinned equal by test_sorted_rbv_fill_paths_equal.
-    """
-    if not use_scan:
-        idx = jnp.clip(key_s, 0, table.shape[0] - 1)
-        return jnp.stack(
-            [jnp.take(table[:, c], idx) for c in range(table.shape[1])],
-            axis=1)
-    from .ops.pallas_kernels import segmented_cummax_pallas
-
-    n = key_s.shape[0]
-    tgt = jnp.where(left < right, left, n)  # empty runs must not collide
-    start_vals = jnp.stack(
-        [jnp.full(n + 1, -INF).at[tgt].set(table[:, c], mode="drop")[:n]
-         for c in range(table.shape[1])], axis=1)
-    return segmented_cummax_pallas(key_s, start_vals, interpret=interpret)
-
-
-def _sorted_extents(key_s, left, right, y, sels, n_segments, use_scan,
-                    interpret):
-    """Per-segment (min_y, max_y) of ``y`` under each selection mask.
-
-    ``use_scan``: one Pallas [N, 2*len(sels)] segmented running max +
-    run-end pickup (max over the run's rows — exact, order-free);
-    otherwise the scatter-min/max formulation.  Returns [(min_y, max_y)]
-    per selection, both f32[S] with +/-INF where the selection is empty.
-    """
-    n = key_s.shape[0]
-    if not use_scan:
-        out = []
-        for sel in sels:
-            seg_t = jnp.where(sel, key_s, n_segments)
-            mn = jnp.full(n_segments + 1, INF).at[seg_t].min(
-                jnp.where(sel, y, INF))[:n_segments]
-            mx = jnp.full(n_segments + 1, -INF).at[seg_t].max(
-                jnp.where(sel, y, -INF))[:n_segments]
-            out.append((mn, mx))
-        return out
-    from .ops.pallas_kernels import segmented_cummax_pallas
-
-    cols = []
-    for sel in sels:
-        cols.append(jnp.where(sel, -y, -INF))
-        cols.append(jnp.where(sel, y, -INF))
-    scan = segmented_cummax_pallas(
-        key_s, jnp.stack(cols, axis=1), interpret=interpret)
-    # run end of segment s sits at right[s]-1 whenever its run is non-empty
-    # (an empty run's end index would point into ANOTHER segment's rows);
-    # a non-empty run with no SELECTED rows yields -INF columns, which the
-    # sign flips below turn into the same +/-INF empties as the scatter path
-    end = jnp.clip(right - 1, 0, n - 1)
-    has = right > left
-    picked = scan[end]
-    out = []
-    for k in range(len(sels)):
-        mn = jnp.where(has, -picked[:, 2 * k], INF)
-        mx = jnp.where(has, picked[:, 2 * k + 1], -INF)
-        out.append((mn, mx))
-    return out
-
-
-def _sorted_rbv_grid(key_s, x, z, y, sel, min_y, max_y, n_segments,
-                     slices, sectors, symmetric, axis_name, per_pt):
-    """METHOD_MAX grid over segment-sorted rows; ``per_pt`` carries the
-    broadcast (min_y, slice_h) columns.  The bucket scatter-max is the same
-    order-free reduction as the original-order path."""
-    if axis_name is not None:
-        min_y = jax.lax.pmin(min_y, axis_name)
-        max_y = jax.lax.pmax(max_y, axis_name)
-    any_pt = min_y < INF
-    min_y = jnp.where(any_pt, min_y, 0.0)
-    max_y = jnp.where(any_pt, max_y, 1.0)
-    slice_h = jnp.maximum((max_y - min_y) / slices, 1e-6)
-
-    si = jnp.clip(((y - per_pt[:, 0]) / per_pt[:, 1]).astype(jnp.int32),
-                  0, slices - 1)
-    dist = jnp.sqrt(x * x + z * z)
-    sector_angle = 2.0 * math.pi / sectors
-    ang = jnp.arctan2(z, x) + 2.0 * math.pi
-    sec = jnp.clip(((ang / sector_angle) % sectors).astype(jnp.int32),
-                   0, sectors - 1)
-    cells = slices * sectors
-    bucket = jnp.where(sel, key_s * cells + si * sectors + sec,
-                       n_segments * cells)
-    d = jnp.zeros(n_segments * cells + 1).at[bucket].max(
-        jnp.where(sel, dist, 0.0), mode="drop")[:n_segments * cells]
-    if axis_name is not None:
-        d = jax.lax.pmax(d, axis_name)
-
-    if symmetric and sectors % 2 == 0:
-        dg = d.reshape(n_segments, slices, sectors)
-        half = sectors // 2
-        avg = (dg[:, :, :half] + dg[:, :, half:]) / 2.0
-        d = jnp.concatenate([avg, avg], axis=2)
-
-    return BatchedRBV(
-        min_y=min_y, slice_height=slice_h,
-        distances=d.reshape(n_segments, cells),
-        slices=slices, sectors=sectors,
-    ), slice_h
-
-
-def _batched_split_rbv_sorted(pos, classification, mask, segment, n_segments,
-                              transforms, crown_slices, crown_sectors,
-                              trunk_slices, trunk_sectors, symmetric,
-                              axis_name, interpret=False):
-    """Sorted-layout METHOD_MAX fast path for :func:`batched_split_rbv`.
-
-    ONE lax.sort by (segment id | class) turns the twelve per-point
-    axis-frame gathers and the per-grid y-extent scatters into run fills /
-    run reductions (three Pallas segmented scans total on TPU), leaving
-    only the two bucket scatter-maxes — order-free, so outputs match the
-    gather path to float ulp and compose across shards exactly as before.
-    tools/probe_inventory.py records the before/after at 15M.
-    """
-    n = pos.shape[0]
-    use_scan = interpret or jax.default_backend() == "tpu"
-    segc = jnp.clip(segment, 0, n_segments).astype(jnp.int32)
-    # class+mask ride the LOW TWO KEY BITS (0 = excluded, else class+1):
-    # same (i32 key, 3 x f32) sort shape as characteristics'; reductions
-    # are order-free so the within-segment reorder is unobservable
-    meta = jnp.where(mask, classification + 1, 0).astype(jnp.int32)
-    # is_stable=False: ~40% cheaper on v5e (probe_sort4); the grids are
-    # per-run maxima and the extents min/max — tie-order independent
-    key2_s, x0, y0, z0 = jax.lax.sort(
-        ((segc << 2) | meta, pos[:, 0], pos[:, 1], pos[:, 2]), num_keys=1,
-        is_stable=False)
-    key_s = key2_s >> 2
-    meta_s = key2_s & 3
-    bounds = jnp.searchsorted(
-        key2_s, jnp.arange(n_segments + 1, dtype=jnp.int32) << 2,
-        side="left", method="scan_unrolled",
-    ).astype(jnp.int32)
-    left, right = bounds[:n_segments], bounds[1:]
-
-    comp = [(0, 3), (1, 3), (2, 3), (0, 0), (1, 0), (2, 0),
-            (0, 1), (1, 1), (2, 1), (0, 2), (1, 2), (2, 2)]
-    table = jnp.stack([transforms[:, i, j] for i, j in comp], axis=1)
-    tf = _run_fill(key_s, left, right, table, use_scan, interpret)
-    px = x0 - tf[:, 0]
-    py = y0 - tf[:, 1]
-    pz = z0 - tf[:, 2]
-    x = px * tf[:, 3] + py * tf[:, 4] + pz * tf[:, 5]
-    y = px * tf[:, 6] + py * tf[:, 7] + pz * tf[:, 8]
-    z = px * tf[:, 9] + py * tf[:, 10] + pz * tf[:, 11]
-
-    from .cloud import CLASS_CROWN, CLASS_TRUNK
-
-    sel_c = meta_s == CLASS_CROWN + 1
-    sel_t = meta_s == CLASS_TRUNK + 1
-    (cmn, cmx), (tmn, tmx) = _sorted_extents(
-        key_s, left, right, y, (sel_c, sel_t), n_segments, use_scan,
-        interpret)
-
-    # broadcast each grid's (min_y, slice_h) back per point in one fill
-    def finalize(mn, mx, slices):
-        if axis_name is not None:
-            mn = jax.lax.pmin(mn, axis_name)
-            mx = jax.lax.pmax(mx, axis_name)
-        any_pt = mn < INF
-        mn_f = jnp.where(any_pt, mn, 0.0)
-        mx_f = jnp.where(any_pt, mx, 1.0)
-        return mn_f, jnp.maximum((mx_f - mn_f) / slices, 1e-6)
-
-    cmn_f, csh = finalize(cmn, cmx, crown_slices)
-    tmn_f, tsh = finalize(tmn, tmx, trunk_slices)
-    per4 = _run_fill(
-        key_s, left, right,
-        jnp.stack([cmn_f, csh, tmn_f, tsh], axis=1), use_scan, interpret)
-
-    crown, _ = _sorted_rbv_grid(
-        key_s, x, z, y, sel_c, cmn, cmx, n_segments,
-        crown_slices, crown_sectors, symmetric, axis_name, per4[:, 0:2])
-    trunk, _ = _sorted_rbv_grid(
-        key_s, x, z, y, sel_t, tmn, tmx, n_segments,
-        trunk_slices, trunk_sectors, symmetric, axis_name, per4[:, 2:4])
-    return crown, trunk
-
-
 @functools.partial(jax.jit, static_argnames=(
     "n_segments", "crown_slices", "crown_sectors", "trunk_slices",
     "trunk_sectors", "method", "symmetric", "axis_name"))
@@ -527,26 +337,8 @@ def batched_split_rbv(
     """Crown + trunk RBVs for every segment in one pass (hull.rs:185-208
     split, batched).  Each point moves into ITS segment's axis frame —
     twelve flat [S]->[N] component gathers instead of a gathered [N,3,3]
-    matrix (small-minor-dim gather outputs take 64x lane-padded layouts on
-    v5e; CLAUDE.md round-2 OOM note).  ``axis_name`` composes point shards
-    (transforms must be replicated).
-
-    METHOD_MAX (the default) routes through the sorted-layout fast path on
-    TPU (:func:`_batched_split_rbv_sorted` — run fills/reductions via three
-    Pallas segmented scans; results match this path to float ulp).  The
-    mean method keeps the scatter formulation: its float sums are
-    order-sensitive, and the scatter order is the pinned behavior."""
-    from .config import scatter_inventory_forced
-
-    if method == METHOD_MAX and not scatter_inventory_forced():
-        # off-TPU the sorted path runs with interpret=True Pallas (the
-        # pinned-equal reference); TREEE_SCATTER_INVENTORY=1 falls back
-        # to the scatter formulation below on any backend (advisor r3)
-        return _batched_split_rbv_sorted(
-            pos, classification, mask, segment, n_segments, transforms,
-            crown_slices, crown_sectors, trunk_slices, trunk_sectors,
-            symmetric, axis_name)
-
+    matrix.  ``axis_name`` composes point shards (transforms must be
+    replicated)."""
     from .cloud import CLASS_CROWN, CLASS_TRUNK
 
     def g(i, j):

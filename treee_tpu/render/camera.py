@@ -15,22 +15,23 @@ from __future__ import annotations
 
 import math
 
-import flax.struct
 import jax
 import jax.numpy as jnp
+
+from ..utils import struct
 
 ROTATE_SPEED = 0.002      # camera.rs:3 BASE_ROTATE_SPEED
 VERTICAL_SPEED = 0.02     # camera.rs:4
 
 
-class Camera(flax.struct.PyTreeNode):
+class Camera(struct.PyTreeNode):
     """Camera state: camera-to-world transform + intrinsics."""
 
     transform: jax.Array                       # f32[4,4] camera-to-world
     offset: jax.Array                          # orbital pivot distance
-    fov_y: float = flax.struct.field(pytree_node=False, default=45.0 * math.tau / 360.0)
-    near: float = flax.struct.field(pytree_node=False, default=0.1)
-    far: float = flax.struct.field(pytree_node=False, default=10_000.0)
+    fov_y: float = struct.field(pytree_node=False, default=45.0 * math.tau / 360.0)
+    near: float = struct.field(pytree_node=False, default=0.1)
+    far: float = struct.field(pytree_node=False, default=10_000.0)
 
     @classmethod
     def orbital(cls, distance: float = 100.0, **kw) -> "Camera":

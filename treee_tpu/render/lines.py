@@ -2,7 +2,7 @@
 
 The reference draws these as a LineList pipeline with black fragments over the
 splat pass (render/src/lines.rs + lines.wgsl; hull/RBV/axis geometry from
-interactive/hull.rs:780-841 and trunk_axis.rs:24-43).  The TPU equivalent
+interactive/hull.rs:780-841 and trunk_axis.rs:24-43).  The equivalent here
 samples each segment densely, projects the samples with the same camera, depth-
 tests them against the splat pass's z-buffer (with a small bias so lines win
 ties against their own surface) and paints the hit pixels.

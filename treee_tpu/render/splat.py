@@ -10,7 +10,7 @@ Capability parity with the reference render pipeline:
   (render/src/eye_dome.rs + eye_dome.wgsl:37-67).
 
 The reference rasterizes by GPU instancing (3 vertices x N instances, fragment
-circle-discard).  The TPU design is scatter-based: project all points with one
+circle-discard).  This design is scatter-based: project all points with one
 matmul, z-test by scatter-min into a flat depth buffer, resolve winners by a
 depth-equality scatter of point ids, then shade per pixel — every stage a
 vectorized XLA op.  The splat footprint is a static (2R+1)^2 offset unroll with
@@ -48,7 +48,8 @@ def _project(pos: jax.Array, cam: Camera, width: int, height: int):
     view = cam.view_matrix()
     # camera-relative position is a large-magnitude cancellation for
     # georeferenced (UTM-scale) coordinates: keep the rotation at full f32
-    # (CLAUDE.md: f32 matmuls feeding subtractions need HIGHEST on TPU)
+    # (an f32 product feeding a subtraction needs HIGHEST: the GPU would
+    # otherwise run it in TF32)
     vp = jnp.dot(pos, view[:3, :3].T,
                  precision=jax.lax.Precision.HIGHEST) + view[:3, 3]
     depth = -vp[:, 2]
@@ -155,21 +156,7 @@ def resolve_keys(
             cfg.point_size * f_proj * (h / 2.0) / jnp.maximum(d, 1e-6), 0.71
         )
 
-    from ..config import resolve_use_pallas
-
-    # the Pallas kernel packs source offsets into 4-bit biased fields, which
-    # only represents |offset| <= 7 — larger radii take the XLA scan path
-    if r > 0 and r <= 7 and resolve_use_pallas(cfg.use_pallas):
-        # one fused VMEM kernel instead of r*8 HBM round-trips over [H,W]
-        from ..ops.pallas_kernels import dilate_pallas
-
-        p22 = cfg.far / (cfg.near - cfg.far)
-        p23 = cfg.near * cfg.far / (cfg.near - cfg.far)
-        kimg = dilate_pallas(
-            kimg, p22, p23, cfg.point_size * f_proj * (h / 2.0), radius=r
-        )
-        hit = kimg != IBIG
-    elif r > 0:
+    if r > 0:
         rimg = jnp.where(hit, radius_from_key(kimg), 0.0)
         zero = jnp.zeros((h, w), jnp.float32)
         row = jax.lax.broadcasted_iota(jnp.int32, (h, w), 0)
@@ -243,13 +230,6 @@ def eye_dome(
     """
     s = max(1.0 - cfg.eye_dome_strength, 0.1) ** 6  # eye_dome.rs:226-229
     n, f = cfg.near, cfg.far
-
-    from ..config import resolve_use_pallas
-
-    if resolve_use_pallas(cfg.use_pallas):
-        from ..ops.pallas_kernels import eye_dome_pallas
-
-        return eye_dome_pallas(color, z01, n, f, s, cfg.eye_dome_color)
 
     def linearize(d):
         return jnp.where(d >= 1.0, 1.0, (2.0 * n) / (f + n - d * (f - n)))

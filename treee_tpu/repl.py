@@ -8,7 +8,7 @@ sliders (point size, brush radius, segmentation distance, eye-dome strength,
 palette radios, property range) and a focused single-tree view with property
 displays and hull/RBV/trunk-axis overlays (:971-1000).
 
-The TPU build is headless, so the same event surface is a line-oriented REPL:
+The build is headless, so the same event surface is a line-oriented REPL:
 every widget and mouse interaction maps to a command; frames render to PNG on
 demand.  All edits are the pure jitted transitions of ``Session``/
 ``interactive.py`` — state never leaves the device between commands.
@@ -276,13 +276,10 @@ class Repl:
         if path is None:
             path = f"frame_{self.frame_idx:03d}.png"
             self.frame_idx += 1
-        try:
-            from PIL import Image
+        from .serve import png_encode
 
-            Image.fromarray(img).save(path)
-        except ImportError:
-            np.save(path + ".npy", img)
-            path += ".npy"
+        with open(path, "wb") as f:
+            f.write(png_encode(np.ascontiguousarray(img)))
         self._print(f"wrote {path}")
 
     # ---- command dispatch -------------------------------------------------

@@ -1,4 +1,4 @@
-"""Deterministic TPU-native tree segmentation.
+"""Deterministic array-native tree segmentation.
 
 Capability parity with the reference segmenter (treee/src/segmenting.rs:110-235),
 which processes 1 m height slices top-down: per slice it merges points into convex
@@ -8,7 +8,7 @@ trees (:468-483), greedily matches tree centroids to the slice above within 2d
 centroids (:182-206).  That pipeline is sequential (bounded(1) channel chain),
 order-dependent (points shuffled, :425) and randomly keyed (:516-521).
 
-The TPU redesign keeps the observable capability — "cluster trees separated by
+The array redesign keeps the observable capability — "cluster trees separated by
 >= d, tracked coherently down the height axis, every point assigned to a tracked
 centroid's Voronoi cell" — with deterministic, massively parallel building blocks:
 
@@ -35,17 +35,17 @@ from __future__ import annotations
 
 import functools
 
-import flax.struct
 import jax
 import jax.numpy as jnp
 
 from .config import SegmentationConfig
+from .utils import struct
 
 INF = jnp.float32(3.0e38)
 IBIG = jnp.int32(0x7FFFFFFF)
 
 
-class SegmentationResult(flax.struct.PyTreeNode):
+class SegmentationResult(struct.PyTreeNode):
     """Output of :func:`segment_points`.
 
     Attributes:
@@ -67,7 +67,6 @@ class SegmentationResult(flax.struct.PyTreeNode):
 
 def _connected_components(
     occupied: jax.Array, iters: int, occ_cap: int = 1 << 19,
-    pallas_sweeps: int = 0, pallas_bodies: int = 3,
 ) -> tuple[jax.Array, jax.Array, jax.Array]:
     """Label CC of [B,G,G] boolean grids with 8-connectivity, all bands at once.
 
@@ -78,8 +77,7 @@ def _connected_components(
 
     The occupied cells (a few 100k of the B*G*G grid at forest densities) are
     compacted once up front so each pointer jump is two occ_cap-sized gathers
-    + one scatter instead of a full-grid gather (42 ms vs 141 ms per jump at
-    64x384^2 on v5e).  Cells beyond ``occ_cap`` still converge through the
+    + one scatter instead of a full-grid gather.  Cells beyond ``occ_cap`` still converge through the
     min-pool sweeps, just without the jump shortcut.
 
     Returns (labels [B,G,G], occ_idx i32[occ_cap] global flat indices of
@@ -106,27 +104,15 @@ def _connected_components(
     band_off = occ_idx // gg * gg
     jump_tgt = jnp.where(occ_valid, occ_idx, b * gg)
 
-    if pallas_sweeps > 0:
-        from .ops.pallas_kernels import cc_sweep_pallas
-
-        # off-TPU an explicit flag runs the kernel in interpret mode so the
-        # integrated path stays testable on the CPU suite
-        interpret = jax.default_backend() != "tpu"
-
     def body(state):
         lbl, _, it = state
-        if pallas_sweeps > 0:
-            # VMEM-resident sweeps: one kernel call replaces pallas_sweeps
-            # full-stack HBM round trips (ops/pallas_kernels.cc_sweep_pallas)
-            new = cc_sweep_pallas(lbl, pallas_sweeps, interpret=interpret)
-        else:
-            # three cheap min-pool sweeps (pure reduce_window image ops) ...
-            new = lbl
-            for _ in range(3):
-                pooled = jax.lax.reduce_window(
-                    new, 0x7FFFFFFF, jax.lax.min, (1, 3, 3), (1, 1, 1), "SAME"
-                )
-                new = jnp.where(occupied, jnp.minimum(new, pooled), IBIG)
+        # three cheap min-pool sweeps (pure reduce_window image ops) ...
+        new = lbl
+        for _ in range(3):
+            pooled = jax.lax.reduce_window(
+                new, 0x7FFFFFFF, jax.lax.min, (1, 3, 3), (1, 1, 1), "SAME"
+            )
+            new = jnp.where(occupied, jnp.minimum(new, pooled), IBIG)
         # ... then one compact pointer jump: occupied cells' labels always
         # name occupied cells, so padding rows (reading cell 0) are the only
         # garbage and the drop-mode scatter discards them
@@ -137,38 +123,6 @@ def _connected_components(
         new = flat.reshape(b, g, g)
         changed = jnp.any(new != lbl)
         return new, changed, it + 1
-
-    if pallas_sweeps > 0:
-        # pallas path: the (sweeps, bodies) budget is tuned so EVERY body
-        # always runs (tools/probe_cc2.py: the while_loop's convergence
-        # check costs one extra body just to observe "no change"), so the
-        # budgeted bodies are statically unrolled — one pass past the
-        # fixpoint is a no-op (min-pool + pointer jump are idempotent
-        # there).  ONE comparison then gates a safety-net while_loop for
-        # scenes whose topology needs more jump phases than the tuned
-        # budget (the budget was validated on bench occupancy only): the
-        # typical cost is just that comparison; a pathological grid
-        # converges here instead of silently splitting components.
-        lbl = lbl0
-        for _ in range(pallas_bodies - 1):
-            lbl, _, _ = body((lbl, jnp.bool_(True), jnp.int32(0)))
-        prev = lbl
-        lbl, _, _ = body((lbl, jnp.bool_(True), jnp.int32(0)))
-        changed = jnp.any(lbl != prev)
-
-        # loop purely on `changed`: every body op (min-pool, pointer-jump
-        # min-scatter) only DECREASES labels, which are bounded below, so
-        # the loop provably terminates — no iteration cap needed, and a
-        # pathological grid converges fully instead of hitting a budget
-        # (advisor r3: the old `it < 4` cap could still silently split)
-        def safety_cond(state):
-            _, ch, _ = state
-            return ch
-
-        lbl, _, _ = jax.lax.while_loop(
-            safety_cond, body, (lbl, changed, jnp.int32(0))
-        )
-        return lbl, occ_idx, occ_valid
 
     max_bodies = -(-iters // 4)
 
@@ -197,8 +151,7 @@ def _extract_clusters(
 
     Centroids are count-weighted cell centers.  Aggregation scatters only the
     compacted occupied cells (from :func:`_connected_components`) instead of
-    the full grid — scatter cost on TPU is proportional to operand rows
-    whether or not they are masked (tools/microbench.py).
+    the full grid (a scatter pays for every operand row, masked or not).
 
     Selection: cluster accumulation targets are sparse in the [B, G*G] grid
     (thousands of a few 100k occupied cells), so instead of a batched
@@ -207,10 +160,8 @@ def _extract_clusters(
     ascending cell order, reproducing top_k's biggest-first order and
     lowest-index tie-break EXACTLY (A/B'd bit-identical,
     test_sorted_extract_matches_topk) — and ranked into [B, C] slots with
-    one small scatter.  MEASURED on v5e at the 15M bench grid: 6 ms faster
-    than top_k in isolation, 16 ms off the full pipeline
-    (tools/probe_bandscan.py, 2026-08-19).  ``use_sorted=False`` keeps the
-    top_k path for comparison.
+    one small scatter.  ``use_sorted=False`` keeps the top_k path for
+    comparison.
 
     CAVEAT: occupied cells beyond the compaction capacity contribute neither
     counts nor centroid weight (they also lose the CC jump shortcut), and in
@@ -229,22 +180,25 @@ def _extract_clusters(
     root = occ_idx // gg * gg + jnp.clip(l_occ, 0, gg - 1)
     tgt = jnp.where(occ_valid & (l_occ != IBIG), root, b * gg)
     cnt_occ = cnt.reshape(-1)[occ_idx]
-    # cell centers ARITHMETICALLY from the flat index: avoids a
-    # cell_center.reshape(gg, 2)[occ_idx % gg] row gather whose [occ, 2]
-    # output takes the 64x lane-padded TPU layout (the [N,*]-output gather
-    # trap, CLAUDE.md).  Same f32 expression as band_scan's cell_center
-    # iota, so bit-identical.
     cell_flat = occ_idx % gg
-    center_x = lo[0] + ((cell_flat // g).astype(jnp.float32) + 0.5) * s
-    center_z = lo[2] + ((cell_flat % g).astype(jnp.float32) + 0.5) * s
-    w = cnt_occ.astype(jnp.float32)
     pcount = jnp.zeros(b * gg + 1, jnp.int32).at[tgt].add(cnt_occ, mode="drop")
-    psx = jnp.zeros(b * gg + 1, jnp.float32).at[tgt].add(
-        w * center_x, mode="drop"
-    )
-    psz = jnp.zeros(b * gg + 1, jnp.float32).at[tgt].add(
-        w * center_z, mode="drop"
-    )
+
+    def index_sum(cell_index, at):
+        """sum(count * cell_index) per accumulation target, read at ``at``.
+
+        Fixed point: integer adds are exact, so the order in which the
+        scatter accumulates (atomics on the GPU) cannot move a centroid and
+        with it the segment ids.  The index is split into base-8 digits so
+        every i32 digit sum stays below 7 * N < 2^31."""
+        total = jnp.zeros(at.shape, jnp.float32)
+        scale = 1
+        while scale < g:
+            digit = (cell_index // scale) % 8
+            part = jnp.zeros(b * gg + 1, jnp.int32).at[tgt].add(
+                cnt_occ * digit, mode="drop")
+            total = total + part[at].astype(jnp.float32) * float(scale)
+            scale *= 8
+        return total
 
     if use_sorted:
         # candidates are ACCUMULATION TARGETS: occupied cells that received
@@ -291,7 +245,10 @@ def _extract_clusters(
         groots = roots + jnp.arange(b, dtype=jnp.int32)[:, None] * gg
     mask = top > 0
     denom = jnp.maximum(pcount[groots], 1).astype(jnp.float32)
-    cents = jnp.stack([psx[groots] / denom, psz[groots] / denom], axis=-1)
+    # count-weighted mean cell centre: lo + (mean index + 1/2) * s
+    cx = lo[0] + (index_sum(cell_flat // g, groots) / denom + 0.5) * s
+    cz = lo[2] + (index_sum(cell_flat % g, groots) / denom + 0.5) * s
+    cents = jnp.stack([cx, cz], axis=-1)
     return cents, mask
 
 
@@ -412,8 +369,8 @@ def _jump_flood_packed(
     rolled+carried HBM traffic per direction from 4 planes to ~3 (slot,
     packed, running dist).  Positions quantize to the s/64 lattice, so a
     candidate's distance moves by at most ~s/45 — winners flip only on
-    near-exact ties.  Default-off alternate (SegmentationConfig.use_packed_jfa)
-    until measured on hardware, like the Pallas kernels.
+    near-exact ties.  Used when the brute-force Voronoi is off
+    (SegmentationConfig.use_packed_jfa).
     """
     g = seed_slot.shape[-1]
     qs = s / 64.0
@@ -480,7 +437,7 @@ def _bruteforce_voronoi(
     9.4M at forest densities).  Here each occupied cell scores every tracked
     slot of its own band directly: a [occ, B] one-hot of the cell's band
     matmul'd against the [B, T] tracked tables broadcasts each band's
-    centroids to its cells on the MXU (HIGHEST precision makes the one-hot
+    centroids to its cells in one matmul (HIGHEST precision makes the one-hot
     product an exact row select), chunked over T with a running min so no
     [occ, T] buffer materializes.  Unlike the flood fill this is the TRUE
     nearest centroid (JFA can propagate a non-optimal seed); ties break to
@@ -494,9 +451,8 @@ def _bruteforce_voronoi(
     gg = g * g
     t_cap = tracked_pos_b.shape[1]
     occ_band = occ_idx // gg
-    # cell centers arithmetically from the flat index — avoids a lane-padded
-    # [occ,2]-output row gather (same fix as _extract_clusters); identical
-    # f32 expression to band_scan's cell_center iota
+    # cell centers arithmetically from the flat index — no [occ,2]-output
+    # row gather; identical f32 expression to band_scan's cell_center iota
     cell_flat = occ_idx % gg
     ccx = lo[0] + ((cell_flat // g).astype(jnp.float32) + 0.5) * s  # [occ]
     ccz = lo[2] + ((cell_flat % g).astype(jnp.float32) + 0.5) * s
@@ -572,7 +528,7 @@ ANCHOR_BINS = 1024
 def anchor_histogram(pos, valid, lo_y, hi_y):
     """y histogram of every ANCHOR_STRIDE-th point -> i32[ANCHOR_BINS].
 
-    ~N/64 scatter rows (=2.6 ms at 15M on v5e) buys outlier robustness for
+    ~N/64 scatter rows buys outlier robustness for
     the band window below.
     """
     y = pos[::ANCHOR_STRIDE, 1]
@@ -629,7 +585,7 @@ def moment_grids(pos, valid, band, cx, cz, cfg: SegmentationConfig):
 
     This is the only stage that touches all N points before assignment; under
     multi-device sharding each shard scatters locally and the grids are summed
-    over ICI (parallel/sharding.py).  Only counts are scattered — cluster
+    over NVLink (parallel/sharding.py).  Only counts are scattered — cluster
     centroids are recovered as count-weighted CELL centers (error <= cell/2 =
     d/2, well inside the 2d matching radius), saving two full-N scatter passes.
     """
@@ -662,15 +618,8 @@ def band_scan(cnt, lo, s, d, cfg: SegmentationConfig):
 
     # cluster every band at once (batched CC + extraction); only centroid
     # matching and the per-band Voronoi stay sequential in the scan
-    from .config import resolve_use_pallas
-
     labels, occ_idx, occ_valid = _connected_components(
-        cnt > 0, cfg.cc_iters, cfg.cc_occupied_cap,
-        pallas_sweeps=(
-            cfg.cc_pallas_sweeps if resolve_use_pallas(cfg.use_pallas_cc) else 0
-        ),
-        pallas_bodies=cfg.cc_pallas_bodies,
-    )
+        cnt > 0, cfg.cc_iters, cfg.cc_occupied_cap)
     cents_b, cmask_b = _extract_clusters(
         labels, cnt, lo, s, c_cap, cfg.min_points, occ_idx, occ_valid,
         use_sorted=cfg.use_sorted_extract,
@@ -678,31 +627,23 @@ def band_scan(cnt, lo, s, d, cfg: SegmentationConfig):
 
     # the sequential part of the scan carries only the tiny [T,2] matching
     # state; the expensive per-band Voronoi moves out and runs batched below
-    if resolve_use_pallas(cfg.use_pallas_match):
-        from .ops.pallas_kernels import match_scan_pallas
+    def band_step(carry, xs):
+        tracked_pos, active, n_alloc = carry
+        cents, cmask = xs
+        tracked_pos, active, n_alloc = _match_band(
+            tracked_pos, active, n_alloc, cents, cmask,
+            cfg.match_radius_factor * d, cfg.match_rounds,
+        )
+        return (tracked_pos, active, n_alloc), (tracked_pos, active)
 
-        tracked_pos_b, active_b, n_alloc = match_scan_pallas(
-            cents_b, cmask_b, cfg.match_radius_factor * d, cfg.match_rounds,
-            t_cap, interpret=jax.default_backend() != "tpu",
-        )
-    else:
-        def band_step(carry, xs):
-            tracked_pos, active, n_alloc = carry
-            cents, cmask = xs
-            tracked_pos, active, n_alloc = _match_band(
-                tracked_pos, active, n_alloc, cents, cmask,
-                cfg.match_radius_factor * d, cfg.match_rounds,
-            )
-            return (tracked_pos, active, n_alloc), (tracked_pos, active)
-
-        init = (
-            jnp.zeros((t_cap, 2), jnp.float32),
-            jnp.zeros((t_cap,), bool),
-            jnp.int32(0),
-        )
-        (_, _, n_alloc), (tracked_pos_b, active_b) = jax.lax.scan(
-            band_step, init, (cents_b, cmask_b)
-        )
+    init = (
+        jnp.zeros((t_cap, 2), jnp.float32),
+        jnp.zeros((t_cap,), bool),
+        jnp.int32(0),
+    )
+    (_, _, n_alloc), (tracked_pos_b, active_b) = jax.lax.scan(
+        band_step, init, (cents_b, cmask_b)
+    )
 
     b = cnt.shape[0]
     gg = g * g
@@ -744,13 +685,7 @@ def band_scan(cnt, lo, s, d, cfg: SegmentationConfig):
     seed_slot = seed_slot.reshape(b, g, g)
     seed_pos = seed_pos.reshape(b, g, g, 2)
 
-    if resolve_use_pallas(cfg.use_pallas):
-        from .ops.pallas_kernels import jump_flood_pallas
-
-        slot_grids = jax.vmap(jump_flood_pallas, in_axes=(0, 0, None))(
-            seed_slot, seed_pos, cell_center
-        )
-    elif cfg.use_packed_jfa and g <= 512:  # 15-bit packed coords need g*64 <= 2^15
+    if cfg.use_packed_jfa and g <= 512:  # 15-bit packed coords need g*64 <= 2^15
         slot_grids = _jump_flood_packed(seed_slot, seed_pos, cell_center, lo, s)
     else:
         slot_grids = _jump_flood(seed_slot, seed_pos, cell_center)
@@ -761,10 +696,9 @@ def assign_points(slot_grids, band, cx, cz, valid):
     """Per-point assignment: gather the band's Voronoi winner (O(1)/point).
 
     The index is flattened by hand: XLA lowers the 3-D form
-    ``slot_grids[band, cx, cz]`` to a general 3-vector gather that measures
-    200.3 ms at 15M on v5e, vs 105.8 ms for the same lookup through a
-    precomputed flat id (tools/probe_assign.py, 2026-08-18).  band/cx/cz are
-    pre-clipped by point_cells, so flat is always in bounds.
+    ``slot_grids[band, cx, cz]`` to a general 3-vector gather instead of one
+    flat lookup.  band/cx/cz are pre-clipped by point_cells, so flat is
+    always in bounds.
     """
     g = slot_grids.shape[-1]
     flat = (band * g + cx) * g + cz

@@ -19,14 +19,15 @@ from __future__ import annotations
 
 import functools
 
-import flax.struct
 import jax
 import jax.numpy as jnp
+
+from .utils import struct
 
 INF = jnp.float32(3.0e38)
 
 
-class TrunkAxis(flax.struct.PyTreeNode):
+class TrunkAxis(struct.PyTreeNode):
     origin: jax.Array     # f32[3]
     direction: jax.Array  # f32[3] unit, roughly +y
     found: jax.Array      # bool — False when no trunk points
@@ -129,6 +130,56 @@ def _segment_minmax_y(y, mask, seg_t, n_segments, axis_name=None):
     return jnp.where(found, lo, 0.0), jnp.where(found, hi, 0.0), found
 
 
+# fixed-point x/z sums: offsets from the masked minimum in power-of-two
+# steps of at least 2**-16 m, held below 2**30 steps and split into four
+# 8-bit digits, so every i32 digit sum stays below 2**31 for up to
+# 8,421,504 points per target (255 * n < 2**31)
+_MIN_STEP_LOG2 = -16
+_SPAN_LOG2 = 30
+_DIGITS = 4
+
+
+def _exact_means_xz(pos, m, tgt, n_targets, axis_name=None):
+    """Per-target (count, mean x, mean z) over the points with ``m`` set,
+    independent of the order in which the points are summed.
+
+    The GPU's float scatter-adds use atomics whose order changes from run
+    to run, and point shards sum in yet another order; an axis moved by one
+    ulp can move a point across an RBV sector and change a tree's DBH by
+    centimetres.  So x and z are summed as exact integers: fixed-point
+    offsets from the masked minimum, split into 8-bit digits.  Integer sums
+    also compose exactly over shards (``axis_name``), so the means are
+    bit-identical on one device and on a mesh.  They are the means of the
+    quantized positions, within half a step of the float means.
+    """
+    xz = jnp.stack([pos[:, 0], pos[:, 2]], axis=-1)             # [N,2]
+    lo = jnp.min(jnp.where(m[:, None], xz, INF), axis=0)
+    hi = jnp.max(jnp.where(m[:, None], xz, -INF), axis=0)
+    if axis_name is not None:
+        lo = jax.lax.pmin(lo, axis_name)
+        hi = jax.lax.pmax(hi, axis_name)
+    lo = jnp.where(lo < INF, lo, 0.0)
+    extent = jnp.max(jnp.maximum(hi - lo, 1e-30))
+    k = jnp.maximum(jnp.ceil(jnp.log2(extent)) - _SPAN_LOG2,
+                    _MIN_STEP_LOG2).astype(jnp.int32)
+    step = jax.lax.bitcast_convert_type((k + 127) << 23, jnp.float32)  # 2**k
+    q = jnp.round((jnp.where(m[:, None], xz, lo) - lo) / step).astype(
+        jnp.int32)
+    cols = jnp.concatenate(
+        [m.astype(jnp.int32)[:, None]]
+        + [(q >> (8 * i)) & 255 for i in range(_DIGITS)], axis=1)
+    t = jnp.where(m, tgt, n_targets)
+    sums = jnp.zeros((n_targets + 1, cols.shape[1]), jnp.int32).at[t].add(
+        cols)[:n_targets]
+    if axis_name is not None:
+        sums = jax.lax.psum(sums, axis_name)
+    cnt = sums[:, 0].astype(jnp.float32)
+    c = jnp.maximum(cnt, 1.0)[:, None]
+    mean = lo + sum(sums[:, 1 + 2 * i:3 + 2 * i].astype(jnp.float32) / c
+                    * (step * 2.0 ** (8 * i)) for i in range(_DIGITS))
+    return cnt, mean[:, 0], mean[:, 1]
+
+
 @functools.partial(jax.jit, static_argnames=("n_segments", "layers",
                                              "axis_name"))
 def batched_average_direction(
@@ -144,67 +195,37 @@ def batched_average_direction(
     Fields are [S]-leading; row i matches average_direction on segment i.
 
     ``axis_name``: set inside ``shard_map`` over point shards; the per-
-    segment tables then compose with pmin/pmax (exact) and psum (float sums,
-    shard-order instead of scatter-order accumulation).
+    segment tables then compose with pmin/pmax and integer psums, all exact,
+    so a mesh reproduces the one-device axes bit for bit.
     """
-    from .config import use_sorted_inventory
-
-    if use_sorted_inventory():
-        # sorted-scan fast path (~4x, tools/probe_inventory.py); gated off
-        # CPU like rbv's — see _run_fill's note on the XLA segmented-scan
-        # poisoning this environment's CPU client.  TREEE_SCATTER_INVENTORY=1
-        # falls back to the scatter formulation below (advisor r3).
-        return _batched_average_direction_sorted(
-            pos, mask, segment, n_segments, layers, axis_name)
-
     y = pos[:, 1]
     seg_t = jnp.where(mask, segment, n_segments)
     lo, hi, found = _segment_minmax_y(y, mask, seg_t, n_segments, axis_name)
 
     lo_p = jnp.take(lo, segment)  # per-point base height of ITS segment
     band = mask & (y >= lo_p + 0.4) & (y < lo_p + 0.6)
-    band_t = jnp.where(band, segment, n_segments)
-    band_n = jnp.zeros(n_segments + 1).at[band_t].add(
-        band.astype(jnp.float32))[:n_segments]
-    band_x = jnp.zeros(n_segments + 1).at[band_t].add(
-        jnp.where(band, pos[:, 0], 0.0))[:n_segments]
-    band_z = jnp.zeros(n_segments + 1).at[band_t].add(
-        jnp.where(band, pos[:, 2], 0.0))[:n_segments]
+    band_n, band_x, band_z = _exact_means_xz(pos, band, segment, n_segments,
+                                             axis_name)
 
     layer_h = jnp.maximum((hi - lo) / layers, 1e-6)  # [S]
     li = jnp.clip(
         ((y - lo_p) / jnp.take(layer_h, segment)).astype(jnp.int32),
         0, layers - 1,
     )
-    tgt = jnp.where(mask, segment * layers + li, n_segments * layers)
-    lsum_x = jnp.zeros(n_segments * layers + 1).at[tgt].add(
-        jnp.where(mask, pos[:, 0], 0.0))[:-1].reshape(n_segments, layers)
-    lsum_z = jnp.zeros(n_segments * layers + 1).at[tgt].add(
-        jnp.where(mask, pos[:, 2], 0.0))[:-1].reshape(n_segments, layers)
-    lcnt = jnp.zeros(n_segments * layers + 1).at[tgt].add(
-        mask.astype(jnp.float32))[:-1].reshape(n_segments, layers)
-    if axis_name is not None:
-        band_n = jax.lax.psum(band_n, axis_name)
-        band_x = jax.lax.psum(band_x, axis_name)
-        band_z = jax.lax.psum(band_z, axis_name)
-        lsum_x = jax.lax.psum(lsum_x, axis_name)
-        lsum_z = jax.lax.psum(lsum_z, axis_name)
-        lcnt = jax.lax.psum(lcnt, axis_name)
+    lcnt, lmean_x, lmean_z = (
+        v.reshape(n_segments, layers) for v in _exact_means_xz(
+            pos, mask, segment * layers + li, n_segments * layers,
+            axis_name))
     return _axis_from_tables(lo, hi, found, layer_h, band_n, band_x, band_z,
-                             lsum_x, lsum_z, lcnt, layers)
+                             lmean_x, lmean_z, lcnt, layers)
 
 
 def _axis_from_tables(lo, hi, found, layer_h, band_n, band_x, band_z,
-                      lsum_x, lsum_z, lcnt, layers):
-    """[S]-level tail of AverageDirection, shared by the scatter and the
-    sorted-scan formulations (identical math on identical tables)."""
-    lmean_x = lsum_x / jnp.maximum(lcnt, 1.0)
-    lmean_z = lsum_z / jnp.maximum(lcnt, 1.0)
-
-    origin_x = jnp.where(band_n > 0, band_x / jnp.maximum(band_n, 1.0),
-                         lmean_x[:, 0])
-    origin_z = jnp.where(band_n > 0, band_z / jnp.maximum(band_n, 1.0),
-                         lmean_z[:, 0])
+                      lmean_x, lmean_z, lcnt, layers):
+    """[S]-level tail of AverageDirection from the per-segment counts and
+    means (band: ``band_*`` [S]; layers: ``l*`` [S, layers])."""
+    origin_x = jnp.where(band_n > 0, band_x, lmean_x[:, 0])
+    origin_z = jnp.where(band_n > 0, band_z, lmean_z[:, 0])
     origin = jnp.stack([origin_x, lo, origin_z], axis=-1)  # [S,3]
 
     heights = lo[:, None] + (
@@ -221,100 +242,6 @@ def _axis_from_tables(lo, hi, found, layer_h, band_n, band_x, band_z,
     direction = jnp.where(found[:, None], direction, up)
     origin = jnp.where(found[:, None], origin, 0.0)
     return TrunkAxis(origin=origin, direction=direction, found=found)
-
-
-def _batched_average_direction_sorted(pos, mask, segment, n_segments, layers,
-                                      axis_name, interpret=False):
-    """Sorted-layout AverageDirection (TPU fast path; interpret for tests).
-
-    The scatter formulation costs ~1.3 s at 15M (8 [N]-operand scatters + 2
-    per-point gathers, tools/probe_inventory.py); here ONE sort by trunk-
-    masked segment id turns the y extents into a Pallas run-max scan, the
-    per-point (lo, layer_h) broadcast into a run fill (value copies —
-    exact), and the band sums into a Pallas run-SUM scan; a second tiny
-    sort by (segment, layer) does the same for the layer sums.  Min/max
-    compose exactly; the float sums differ from scatter order only in
-    accumulation order (doubling-tree within runs), the same tolerance
-    class as shard-vs-single psums.  The [S]-tail is shared verbatim
-    (:func:`_axis_from_tables`).
-    """
-    from .ops.pallas_kernels import (
-        segmented_cummax_pallas, segmented_cumsum_pallas,
-    )
-    from .rbv import _run_fill
-
-    n = pos.shape[0]
-    key = jnp.where(mask, segment, n_segments).astype(jnp.int32)
-    # is_stable=False: ~40% cheaper on v5e (probe_sort4); extents are
-    # commutative and the layer sums are already tolerance-class vs the
-    # scatter order (docstring above)
-    key_s, x_s, y_s, z_s = jax.lax.sort(
-        (key, pos[:, 0], pos[:, 1], pos[:, 2]), num_keys=1,
-        is_stable=False)
-    bounds = jnp.searchsorted(
-        key_s, jnp.arange(n_segments + 1, dtype=jnp.int32), side="left",
-        method="scan_unrolled",
-    ).astype(jnp.int32)
-    left, right = bounds[:n_segments], bounds[1:]
-    has = right > left
-    end = jnp.clip(right - 1, 0, n - 1)
-
-    ext = segmented_cummax_pallas(
-        key_s, jnp.stack([-y_s, y_s], axis=1), interpret=interpret)
-    picked = ext[end]
-    lo = jnp.where(has, -picked[:, 0], INF)
-    hi = jnp.where(has, picked[:, 1], -INF)
-    if axis_name is not None:
-        lo = jax.lax.pmin(lo, axis_name)
-        hi = jax.lax.pmax(hi, axis_name)
-    found = lo < INF
-    lo = jnp.where(found, lo, 0.0)
-    hi = jnp.where(found, hi, 0.0)
-    layer_h = jnp.maximum((hi - lo) / layers, 1e-6)
-
-    per2 = _run_fill(key_s, left, right,
-                     jnp.stack([lo, layer_h], axis=1), True, interpret)
-    lo_p, lh_p = per2[:, 0], per2[:, 1]
-    in_seg = key_s < n_segments
-    band = in_seg & (y_s >= lo_p + 0.4) & (y_s < lo_p + 0.6)
-    bsum = segmented_cumsum_pallas(
-        key_s,
-        jnp.stack([band.astype(jnp.float32),
-                   jnp.where(band, x_s, 0.0),
-                   jnp.where(band, z_s, 0.0)], axis=1),
-        interpret=interpret)
-    bp = bsum[end]
-    band_n = jnp.where(has, bp[:, 0], 0.0)
-    band_x = jnp.where(has, bp[:, 1], 0.0)
-    band_z = jnp.where(has, bp[:, 2], 0.0)
-
-    li = jnp.clip(((y_s - lo_p) / lh_p).astype(jnp.int32), 0, layers - 1)
-    bucket = jnp.where(in_seg, key_s * layers + li, n_segments * layers)
-    b_s, xb, zb = jax.lax.sort((bucket, x_s, z_s), num_keys=1)
-    lb = jnp.searchsorted(
-        b_s, jnp.arange(n_segments * layers + 1, dtype=jnp.int32),
-        side="left", method="scan_unrolled",
-    ).astype(jnp.int32)
-    lleft, lright = lb[:-1], lb[1:]
-    lhas = lright > lleft
-    lend = jnp.clip(lright - 1, 0, n - 1)
-    lsum = segmented_cumsum_pallas(
-        b_s,
-        jnp.stack([jnp.ones(n, jnp.float32), xb, zb], axis=1),
-        interpret=interpret)
-    lp = lsum[lend]
-    lcnt = jnp.where(lhas, lp[:, 0], 0.0).reshape(n_segments, layers)
-    lsum_x = jnp.where(lhas, lp[:, 1], 0.0).reshape(n_segments, layers)
-    lsum_z = jnp.where(lhas, lp[:, 2], 0.0).reshape(n_segments, layers)
-    if axis_name is not None:
-        band_n = jax.lax.psum(band_n, axis_name)
-        band_x = jax.lax.psum(band_x, axis_name)
-        band_z = jax.lax.psum(band_z, axis_name)
-        lsum_x = jax.lax.psum(lsum_x, axis_name)
-        lsum_z = jax.lax.psum(lsum_z, axis_name)
-        lcnt = jax.lax.psum(lcnt, axis_name)
-    return _axis_from_tables(lo, hi, found, layer_h, band_n, band_x, band_z,
-                             lsum_x, lsum_z, lcnt, layers)
 
 
 @functools.partial(jax.jit, static_argnames=("n_segments", "axis_name"))
@@ -338,19 +265,8 @@ def batched_low_high_layer(
     high = mask & (hi_p - y < layer_p)
 
     def mean_xz(m):
-        t = jnp.where(m, segment, n_segments)
-        n = jnp.zeros(n_segments + 1).at[t].add(
-            m.astype(jnp.float32))[:n_segments]
-        sx = jnp.zeros(n_segments + 1).at[t].add(
-            jnp.where(m, pos[:, 0], 0.0))[:n_segments]
-        sz = jnp.zeros(n_segments + 1).at[t].add(
-            jnp.where(m, pos[:, 2], 0.0))[:n_segments]
-        if axis_name is not None:
-            n = jax.lax.psum(n, axis_name)
-            sx = jax.lax.psum(sx, axis_name)
-            sz = jax.lax.psum(sz, axis_name)
-        n = jnp.maximum(n, 1.0)
-        return sx / n, sz / n
+        _, mx, mz = _exact_means_xz(pos, m, segment, n_segments, axis_name)
+        return mx, mz
 
     (lmx, lmz), (hmx, hmz) = mean_xz(low), mean_xz(high)
     origin = jnp.stack([lmx, lo, lmz], axis=-1)

@@ -3,7 +3,7 @@
 The reference has none (SURVEY.md §5: only a frame-delta Time helper).  Here:
 ``phase_timer`` wall-clocks named phases (blocking on device results so the
 numbers mean something under async dispatch), and ``device_trace`` wraps
-``jax.profiler`` for Perfetto-grade TPU traces.
+``jax.profiler`` for Perfetto-grade device traces.
 """
 
 from __future__ import annotations
